@@ -1,0 +1,110 @@
+"""Batched candidate peak-group selection (3D).
+
+One call processes a batch of B precursors:
+
+    XIC (fragments + MS1 isotopes, CUDA kernel on the card)
+    -> Gaussian smoothing along cycles
+    -> score = sum log1p(fragment XICs) + sum log1p(isotope XICs),
+       standardized per precursor
+    -> 5-point-stencil peaks, top-k
+    -> close-peak suppression
+    -> symmetric extent growth
+    -> overlapping-candidate merge
+
+Outputs a candidate set [B, C] in absolute cycle coordinates.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from alphadia_torch.ops.peaks import (
+    find_peaks_profile,
+    join_overlapping_1d,
+    suppress_close_peaks,
+    symmetric_limits_profile,
+)
+from alphadia_torch.ops.smooth import convolve_profiles
+from alphadia_torch.ops.xic_cuda import extract_xic_cuda
+
+
+def select_candidates_batch(
+    peak_packed,  # f32[N, 4] (DiaData.device_arrays)
+    cell_start,  # i32[n_slots, n_bins, n_cycles+1]
+    frag_slot,  # i32[B, QF] cycle slot per fragment query (-1 pad)
+    frag_mz,  # f32[B, QF]
+    iso_slot,  # i32[B, QI]
+    iso_mz,  # f32[B, QI]
+    cycle_start,  # i32[B] first cycle of each precursor's window
+    kernel,  # f32[kernel_size]
+    fragment_tol_ppm: float,
+    precursor_tol_ppm: float,
+    n_valid_fragments,  # i32[B] (selection requires > 3)
+    *,
+    n_cycles: int,
+    n_bins: int,
+    bin_mz_min: float,
+    bin_width: float,
+    slab: int,
+    window_len: int,
+    kernel_size: int,
+    candidate_count: int,
+    min_size_rt: int = 3,
+    max_size_rt: int = 15,
+    f_rt: float = 0.99,
+    center_fraction: float = 0.5,
+    join_close_candidates: bool = True,
+    join_cycle_threshold: float = 0.6,
+    peak_cycle_tolerance: int = 3,
+    cycle_stride: int = 1,
+):
+    xic_kw = dict(
+        n_cycles=n_cycles, n_bins=n_bins, bin_mz_min=bin_mz_min,
+        bin_width=bin_width, slab=slab, window_len=window_len,
+        cycle_stride=cycle_stride,
+    )
+    dense_frag = extract_xic_cuda(
+        peak_packed, cell_start, frag_slot, frag_mz, fragment_tol_ppm,
+        cycle_start, **xic_kw,
+    )  # [B, QF, W]
+    dense_iso = extract_xic_cuda(
+        peak_packed, cell_start, iso_slot, iso_mz, precursor_tol_ppm,
+        cycle_start, **xic_kw,
+    )  # [B, QI, W]
+
+    smooth_frag = convolve_profiles(dense_frag, kernel, kernel_size=kernel_size)
+    smooth_iso = convolve_profiles(dense_iso, kernel, kernel_size=kernel_size)
+    feature = torch.log1p(smooth_frag.clamp(min=0.0)).sum(dim=1) + torch.log1p(
+        smooth_iso.clamp(min=0.0)
+    ).sum(dim=1)  # [B, W]
+
+    mean = feature.mean(dim=1, keepdim=True)
+    std = feature.std(dim=1, keepdim=True, correction=0)
+    score = (feature - mean) / (std + 1e-6)
+
+    peak_idx, peak_score, valid = find_peaks_profile(score, top_n=candidate_count)
+    keep = suppress_close_peaks(peak_idx, valid, peak_cycle_tolerance)
+    start_rel, stop_rel = symmetric_limits_profile(
+        score,
+        peak_idx.clamp(min=0),
+        f=f_rt,
+        center_fraction=center_fraction,
+        min_size=min_size_rt,
+        max_size=max_size_rt,
+    )
+    if join_close_candidates:
+        start_rel, stop_rel, keep = join_overlapping_1d(
+            start_rel, stop_rel, keep, join_cycle_threshold
+        )
+    keep = keep & (n_valid_fragments > 3)[:, None]
+
+    cyc0 = cycle_start[:, None]
+    rank = torch.cumsum(keep.to(torch.int32), dim=1) - 1
+    return {
+        "valid": keep,
+        "rank": torch.where(keep, rank, 0).to(torch.int32),
+        "score": torch.where(keep, peak_score, 0.0).to(torch.float32),
+        "cycle_center": (cyc0 + peak_idx).clamp(0, n_cycles - 1).to(torch.int32),
+        "cycle_start": (cyc0 + start_rel).clamp(0, n_cycles).to(torch.int32),
+        "cycle_stop": (cyc0 + stop_rel).clamp(0, n_cycles).to(torch.int32),
+    }
