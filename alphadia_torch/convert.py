@@ -33,13 +33,23 @@ def diadata_from_jax(dia) -> DiaData:
     return DiaData(**kw)
 
 
+# fields of the JAX configs that only steer how the JAX drivers move data
+# (the Pallas switch, the device mesh, device-time instrumentation, the
+# light download of the calibration loop): the port has no place for them
+TRANSPORT_FIELDS = ("use_pallas", "mesh_devices", "bench_device_time", "transport_quant")
+
+
 def config_from_jax(cfg):
-    """Map a JAX ``SelectionConfig`` or ``ScoringConfig`` onto the port's,
-    keeping the fields the port has (device-transport options of the JAX
-    drivers have no counterpart)."""
+    """Map a JAX ``SelectionConfig`` or ``ScoringConfig`` onto the port's.
+    Only the transport fields above may be dropped: any other field the
+    port's config lacks raises, so that no setting vanishes silently."""
     target = SelectionConfig if hasattr(cfg, "coarsen_wide_windows") else ScoringConfig
     names = {f.name for f in dataclasses.fields(target)}
-    return target(**{k: v for k, v in vars(cfg).items() if k in names})
+    values = vars(cfg)
+    lost = sorted(k for k in values if k not in names and k not in TRANSPORT_FIELDS)
+    if lost:
+        raise ValueError(f"{type(cfg).__name__} fields with no place in the port's {target.__name__}: {lost}")
+    return target(**{k: v for k, v in values.items() if k in names})
 
 
 def frame_from_pandas(df) -> dict:

@@ -52,6 +52,15 @@ def pearson_rows_masked(x, y, mask, eps=1e-12):
     return num / (den + eps)
 
 
+def or_envelope(x):
+    """Replace local dips of [..., L] profiles by the mean of their two
+    neighbours (the edges stay)."""
+    left, mid, right = x[..., :-2], x[..., 1:-1], x[..., 2:]
+    dip = (mid < left) | (mid < right)
+    repaired = torch.where(dip, (left + right) * 0.5, mid)
+    return torch.cat([x[..., :1], repaired, x[..., -1:]], dim=-1)
+
+
 def center_envelope_odd(x, center: int):
     """Interference-correction envelope walking outwards from ``center``
     (static index). Returns a corrected copy of x [..., W]."""

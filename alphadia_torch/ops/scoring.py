@@ -1,4 +1,4 @@
-"""Batched candidate scoring (3D): 46 features and per-fragment outputs.
+"""Batched candidate scoring: 46 features and per-fragment outputs.
 
 Feature index map (order of ``search/scoring.FEATURE_COLUMNS``):
 0 base_width_mobility, 1 base_width_rt, 2 rt_observed, 3 mobility_observed,
@@ -19,10 +19,18 @@ Feature index map (order of ``search/scoring.FEATURE_COLUMNS``):
 44 mean_overlapping_intensity, 45 mean_overlapping_mass_error.
 
 Profiles are extracted re-centred: the XIC window starts at
-``frame_center - W//2`` so the apex sits at the static index W//2. The scan
-features (0, 29, 30, 39) stay 0 on 3D data. With ``compute_dtype=
-"bfloat16"`` the dense intensity chains run in bfloat16; all m/z-delta and
-mass-error math stays float32.
+``frame_center - W//2`` so the apex sits at the static index W//2. With
+``compute_dtype="bfloat16"`` the dense intensity chains run in bfloat16;
+all m/z-delta and mass-error math stays float32.
+
+Ion-mobility data (``n_scan_bins > 1``): both XICs are cropped to the
+candidate's scan window [scan_lo, scan_hi) in the kernel; the precursor
+height and mass error weight the true (scan, cycle) cells of a 4D
+extraction; and scan profiles fill features 29 and 30 (fragment and
+template scan correlations), 39 (mobility FWHM) and ``scan_com`` (the
+observed mobility in bin units; the driver maps it to a mobility and fills
+feature 0 from the scan window's width). These 4D chains stay float32 in
+every compute dtype. On 3D data features 0, 29, 30 and 39 stay 0.
 """
 
 from __future__ import annotations
@@ -37,12 +45,14 @@ from alphadia_torch.ops.features import (
     masked_corrcoef,
     masked_mean,
     masked_median,
+    or_envelope,
     pearson_rows_masked,
     ref_top3_ion_correlation,
     topk_mean_by,
     weighted_center_mean,
     weighted_center_of_mass,
 )
+from alphadia_torch.ops.xic import extract_scan_profile, extract_xic_4d
 from alphadia_torch.ops.xic_cuda import extract_xic_cuda
 
 # transport precision classes of the features (indices into FEATURE_COLUMNS):
@@ -100,10 +110,15 @@ def score_candidates_batch(
     fragment_tol_ppm: float,
     precursor_tol_ppm: float,
     *,
+    peak_scanbin=None,  # i32[N] scan bin per stored peak (4D)
+    scan_lo=None,  # i32[B] candidate scan window start (4D)
+    scan_hi=None,  # i32[B] exclusive
+    mobility_width=None,  # f32[B] |mobility extent| of the scan window
     n_cycles: int,
     n_bins: int,
     bin_mz_min: float,
     bin_width: float,
+    n_scan_bins: int = 1,
     slab: int,
     window_len: int,
     quant_window: int = 3,
@@ -126,6 +141,13 @@ def score_candidates_batch(
     frame_start = frame_start.to(torch.int32)
     frame_stop = frame_stop.to(torch.int32)
     cycle_start = frame_center - C
+    use_4d = n_scan_bins > 1
+    if use_4d:
+        if peak_scanbin is None or scan_lo is None or scan_hi is None or mobility_width is None:
+            raise ValueError("4D scoring needs peak_scanbin, scan_lo, scan_hi and mobility_width")
+        scan_lo = scan_lo.to(torch.int32)
+        scan_hi = scan_hi.to(torch.int32)
+        mobility_width = mobility_width.to(f32)
 
     # ---- window masks -------------------------------------------------
     cyc = cycle_start[:, None] + torch.arange(W, dtype=torch.int32, device=dev)[None, :]
@@ -137,6 +159,9 @@ def score_candidates_batch(
         bin_width=bin_width, slab=slab, window_len=W, with_mz=True,
         mz_as_delta=True,
     )
+    if use_4d:
+        # crop both XICs to the candidate's scan window (kernel variant c)
+        xic_kw.update(scan_lo=scan_lo, scan_hi=scan_hi)
 
     # ---- dense fragments [B, KF, O2, W] -------------------------------
     fslot = torch.where(frag_valid[:, :, None], ms2_slot[:, None, :], -1).to(torch.int32)
@@ -229,14 +254,22 @@ def score_candidates_batch(
     # precursor planes are weighted from window frame 1 relative to the
     # candidate START with scan centre 2 (a reference artifact)
     prec_ctr = (frame_start - cycle_start + 1).to(f32)
-    center_arr = prec_ctr[:, None].expand(B, KI)
-    prec_height = weighted_center_mean(
-        d_prec_int, center_arr, wmask[:, None, :], scan_dist_sq=(4.0, 1.0)
-    )
-    prec_dmz_obs = weighted_center_mean(
-        d_prec_dmz, center_arr, wmask[:, None, :], scan_dist_sq=(4.0, 1.0),
-        nonzero=prec_present,
-    )
+    if use_4d:
+        prec_height, prec_dmz_obs = _precursor_cells_4d(
+            peak_packed, peak_scanbin, cell_start, islot, imzq, iso_mz,
+            precursor_tol_ppm, cycle_start, prec_ctr, wmask, scan_lo, scan_hi,
+            n_cycles=n_cycles, n_bins=n_bins, bin_mz_min=bin_mz_min,
+            bin_width=bin_width, n_scan_bins=n_scan_bins, slab=slab, window_len=W,
+        )
+    else:
+        center_arr = prec_ctr[:, None].expand(B, KI)
+        prec_height = weighted_center_mean(
+            d_prec_int, center_arr, wmask[:, None, :], scan_dist_sq=(4.0, 1.0)
+        )
+        prec_dmz_obs = weighted_center_mean(
+            d_prec_dmz, center_arr, wmask[:, None, :], scan_dist_sq=(4.0, 1.0),
+            nonzero=prec_present,
+        )
     mz_nz = (prec_present & wmask[:, None, :]).any(dim=-1)
     mass_err_iso = prec_dmz_obs / iso_mz * 1e6
     weighted_mass_error = (
@@ -360,6 +393,18 @@ def score_candidates_batch(
     feat[36] = ref_top3_ion_correlation(frame_corr, frag_mz, frag_intensity, fmask, is_y)
     feat[37] = (fmask & is_y).sum(dim=1).to(f32)
 
+    scan_com = torch.zeros((B,), dtype=f32, device=dev)
+    if use_4d:
+        scan_feat, scan_com = _scan_features(
+            peak_packed, peak_scanbin, cell_start, fslot, fmzq, islot, imzq,
+            fragment_tol_ppm, precursor_tol_ppm, frame_start, frame_stop,
+            cycle_start, scan_lo, scan_hi, mobility_width, iso_intensity, qtf,
+            obs_imp, fmask, frag_intensity, intensity_norm,
+            n_cycles=n_cycles, n_bins=n_bins, bin_mz_min=bin_mz_min,
+            bin_width=bin_width, n_scan_bins=n_scan_bins, slab=slab, window_len=W,
+        )
+        feat.update(scan_feat)
+
     # ---- cycle FWHM ---------------------------------------------------
     # fraction above half max over the candidate's own profile length
     half_max = frame_profile.amax(dim=-1, keepdim=True) * 0.5
@@ -416,10 +461,121 @@ def score_candidates_batch(
         "correlation": frame_corr,
         "valid": fmask,
         "obs_intensity": obs_raw_sum,
-        "scan_com": torch.zeros((B,), dtype=f32, device=dev),
+        "scan_com": scan_com,
     }
     zero = torch.zeros((B,), dtype=f32, device=dev)
     features = torch.stack(
         [feat[i].to(f32) if i in feat else zero for i in range(NUM_FEATURES)], dim=1
     )
     return features, n_valid >= 2, fragment_out
+
+
+def _precursor_cells_4d(
+    peak_packed, peak_scanbin, cell_start, islot, imzq, iso_mz, precursor_tol_ppm,
+    cycle_start, prec_ctr, wmask, scan_lo, scan_hi, *, n_scan_bins, window_len, **xic_kw,
+):
+    """Precursor height and m/z delta [B, KI] on 4D data: exp(-0.1 * d)
+    weighted means over the true (scan, cycle) cells of the candidate's
+    scan window, observations merged cell by cell."""
+    B, KI, O1 = islot.shape
+    S, W = n_scan_bins, window_len
+    dev = iso_mz.device
+    f32 = torch.float32
+    i4_int_o, i4_dmz_o = extract_xic_4d(
+        peak_packed[:, 0], peak_packed[:, 1], peak_scanbin, cell_start,
+        islot.reshape(B, KI * O1), imzq.reshape(B, KI * O1), precursor_tol_ppm,
+        cycle_start, n_scan_bins=S, window_len=W, with_mz=True, **xic_kw,
+    )
+    i4_int_o = i4_int_o.reshape(B, KI, O1, S, W)
+    i4_dmz_o = i4_dmz_o.reshape(B, KI, O1, S, W)
+    nz4 = (i4_int_o > 0).sum(dim=2).to(f32)  # [B, KI, S, W]
+    i4_int = i4_int_o.sum(dim=2)
+    i4_dmz = torch.where(
+        nz4 > 0, (i4_dmz_o.sum(dim=2) - 1e-6 * iso_mz[:, :, None, None]) / (nz4 + 1e-6), 0.0
+    )
+    s_idx = torch.arange(S, dtype=f32, device=dev)
+    smask = (s_idx[None, :] >= scan_lo[:, None]) & (s_idx[None, :] < scan_hi[:, None])  # [B, S]
+    # the reference's scan axis runs against ours and its centre sits one
+    # row past its window, one bin below our window start: ds = s - (lo - 1)
+    ds = s_idx[None, :] - (scan_lo.to(f32)[:, None] - 1.0)  # [B, S]
+    df = torch.arange(W, dtype=f32, device=dev)[None, :] - prec_ctr[:, None]  # [B, W]
+    w4 = torch.exp(-0.1 * torch.sqrt(torch.square(ds)[:, None, :, None] + torch.square(df)[:, None, None, :]))
+    present = (i4_int > 0) & smask[:, None, :, None] & wmask[:, None, None, :]
+    w4m = torch.where(present, w4, 0.0)
+    w4sum = w4m.sum(dim=(-2, -1))  # [B, KI]
+    height = torch.where(w4sum > 0, (i4_int * w4m).sum(dim=(-2, -1)) / w4sum.clamp(min=1e-12), 0.0)
+    dmz = torch.where(w4sum > 0, (i4_dmz * w4m).sum(dim=(-2, -1)) / w4sum.clamp(min=1e-12), 0.0)
+    return height, dmz
+
+
+def _scan_features(
+    peak_packed, peak_scanbin, cell_start, fslot, fmzq, islot, imzq,
+    fragment_tol_ppm, precursor_tol_ppm, frame_start, frame_stop, cycle_start,
+    scan_lo, scan_hi, mobility_width, iso_intensity, qtf, obs_imp, fmask,
+    frag_intensity, intensity_norm, *, n_scan_bins, window_len, **xic_kw,
+):
+    """Features 29, 30 and 39 and the scan centre of mass (bin units) from
+    the mobility scan profiles of the candidate's cycle extent, each
+    or-enveloped first."""
+    B, KF, O2 = fslot.shape
+    KI, O1 = islot.shape[1:]
+    S = n_scan_bins
+    dev = fmask.device
+    f32 = torch.float32
+    smask = (torch.arange(S, device=dev)[None, :] >= scan_lo[:, None]) & (
+        torch.arange(S, device=dev)[None, :] < scan_hi[:, None]
+    )  # [B, S]
+    c_lo = torch.maximum(frame_start, cycle_start)
+    c_hi = torch.minimum(frame_stop, cycle_start + window_len)
+
+    def profile(slot, mz, tol, Q):
+        return extract_scan_profile(
+            peak_packed[:, 0], peak_packed[:, 1], peak_scanbin, cell_start,
+            slot.reshape(B, Q), mz.reshape(B, Q), tol, c_lo, c_hi, n_scan_bins=S, **xic_kw,
+        )
+
+    frag_scan = profile(fslot, fmzq, fragment_tol_ppm, KF * O2).reshape(B, KF, O2, S) * smask[:, None, None, :]
+    frag_scan = or_envelope(frag_scan) * smask[:, None, None, :]
+    prec_scan = profile(islot, imzq, precursor_tol_ppm, KI * O1).reshape(B, KI, O1, S).sum(dim=2) * smask[:, None, :]
+    template_scan = (
+        iso_intensity[:, :, None, None] * qtf[:, :, :, None] * prec_scan[:, :, None, :]
+    ).sum(dim=1)  # [B, O2, S]
+    template_scan = or_envelope(template_scan) * smask[:, None, :]
+
+    # 29: pairwise fragment scan correlations, observation-reduced,
+    # intensity-weighted
+    cnt = smask.sum(-1).clamp(min=1).to(f32)  # [B]
+    mu = frag_scan.sum(-1) / cnt[:, None, None]
+    pm = (frag_scan - mu[..., None]) * smask[:, None, None, :]
+    cov = torch.einsum("bfos,bgos->bfgo", pm, pm)
+    sd = torch.sqrt(torch.einsum("bfos,bfos->bfo", pm, pm).clamp(min=0.0))
+    corr = cov / (sd[:, :, None, :] * sd[:, None, :, :] + 1e-12)
+    corr_red = (corr * obs_imp[:, None, None, :]).sum(-1)  # [B, KF, KF]
+    sc_mask = fmask & (frag_scan.sum(dim=(2, 3)) > 0)
+    w_scan = torch.where(sc_mask, frag_intensity, 0.0)
+    w_scan = w_scan / w_scan.sum(-1, keepdim=True).clamp(min=1e-12)
+    scan_corr = torch.einsum("bfg,bg->bf", corr_red * sc_mask[:, None, :], w_scan)
+    # both scan correlations are 0 below 3 fragments with a scan profile
+    scan_ok = sc_mask.sum(dim=1) >= 3
+    feat = {29: torch.where(scan_ok, masked_mean(scan_corr, sc_mask), 0.0)}
+
+    # 30: fragment against template scan correlation
+    t_corr = masked_corrcoef(
+        frag_scan,
+        template_scan[:, None, :, :].expand(frag_scan.shape),
+        smask[:, None, None, :].expand(frag_scan.shape),
+    )  # [B, KF, O2]
+    feat[30] = torch.where(scan_ok, ((t_corr * obs_imp[:, None, :]).sum(-1) * w_scan).sum(-1), 0.0)
+
+    # 39: mobility FWHM, share of the window above half max x its width
+    smax = frag_scan.amax(dim=-1, keepdim=True)
+    frac = ((frag_scan > 0.5 * smax) & smask[:, None, None, :]).sum(-1).to(f32) / cnt[:, None, None]
+    mf_red = (frac * mobility_width[:, None, None] * obs_imp[:, None, :]).sum(-1)
+    feat[39] = (mf_red * intensity_norm).sum(-1)
+
+    # observed mobility: scan centre of mass of the summed fragment profile
+    total = (frag_scan * fmask[:, :, None, None]).sum(dim=(1, 2))  # [B, S]
+    tmass = total.sum(-1)
+    bins_c = torch.arange(S, dtype=f32, device=dev)[None, :] + 0.5
+    scan_com = torch.where(tmass > 0, (total * bins_c).sum(-1) / tmass.clamp(min=1e-9), 0.0)
+    return feat, scan_com

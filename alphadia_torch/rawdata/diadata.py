@@ -21,7 +21,7 @@ import torch
 from alphadia_torch.constants.settings import NO_MOBILITY_VALUE
 from alphadia_torch.rawdata.dia_cycle import determine_dia_cycle
 from alphadia_torch.rawdata.source import SpectrumData
-from alphadia_torch.utils.device import bucket_count
+from alphadia_torch.utils.device import bucket_count, resolve_device
 
 
 @dataclass
@@ -269,15 +269,17 @@ class DiaData:
             cs = np.pad(cs, ((0, 0), (0, 0), (0, Nc_p - self.n_cycles)), mode="edge")
         return np.ascontiguousarray(cs), crt, Nc_p
 
-    def device_arrays(self, stride: int = 1, device="cpu") -> dict:
+    def device_arrays(self, stride: int = 1, device=None) -> dict:
         """Upload (once per device and stride) the arrays the kernels read.
+        ``device=None`` is the CUDA card, as for every entry point of the
+        port; without one it raises unless ``"cpu"`` is asked for.
 
         Returns ``peak_packed`` f32[N, 4] (see :meth:`packed_store`), its
         column views ``peak_mz`` and ``peak_intensity``, ``peak_scanbin`` i32,
         ``cell_start`` i32, ``cycle_rt`` f32 and the static ``n_cycles``. The
         coarse view shares the fine view's peak store on the device.
         """
-        device = torch.device(device)
+        device = resolve_device(device)
         key = (str(device), stride)
         if key not in self._device:
             if stride > 1:

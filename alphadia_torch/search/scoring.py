@@ -5,7 +5,9 @@ quadrupole windows) are built once on the host and uploaded; each batch of
 candidates gathers its library rows on the device by index and runs
 ``ops/scoring.score_candidates_batch``. Produces the PSM column dict (46
 named features, precursor metadata, derived columns) and the per-fragment
-column dict.
+column dict. On ion-mobility data each candidate also carries its scan
+window, the batch is capped at 4096, and the scan centre of mass and the
+window's width become ``mobility_observed`` and ``base_width_mobility``.
 """
 
 from __future__ import annotations
@@ -44,6 +46,8 @@ FEATURE_COLUMNS = [
     "mean_overlapping_mass_error",
 ]
 
+# per-candidate geometry that each batch slices
+GEO_KEYS = ("rows", "frame_center", "frame_start", "frame_stop", "scan_lo", "scan_hi", "mobility_width")
 # library arrays that the device gathers per candidate
 LIB_KEYS = (
     "frag_mz", "frag_valid", "frag_intensity", "frag_type", "frag_position",
@@ -79,6 +83,9 @@ class ScoringConfig:
     quant_all: bool = True
     experimental_xic: bool = True
     collect_fragments: bool = True
+    # emit every library fragment slot (zeros where unobserved), not only
+    # the observed ones
+    collect_unobserved_fragments: bool = False
     batch_size: int = 16384
     gather_slab: int = 256
     max_ms2_obs: int = 2
@@ -203,11 +210,28 @@ class CandidateScoring:
         frame_start = cand["frame_start"].astype(np.int32)
         frame_stop = cand["frame_stop"].astype(np.int32)
         half = np.maximum(frame_center - frame_start, frame_stop - frame_center)
+        # the candidate's scan window; the one dummy scan [0, 1) on 3D data
+        dia = self.dia
+        n = len(frame_center)
+        if dia.has_mobility and "scan_start" in cand:
+            S = dia.n_scan_bins
+            scan_lo = np.clip(cand["scan_start"].astype(np.int64), 0, S - 1).astype(np.int32)
+            scan_hi = np.clip(cand["scan_stop"].astype(np.int64), 1, S).astype(np.int32)
+            scan_hi = np.maximum(scan_hi, scan_lo + 1)
+            mv = np.asarray(dia.mobility_values, np.float32)
+            mobility_width = np.abs(mv[np.clip(scan_hi - 1, 0, S - 1)] - mv[scan_lo]).astype(np.float32)
+        else:
+            scan_lo = np.zeros(n, np.int32)
+            scan_hi = np.ones(n, np.int32)
+            mobility_width = np.zeros(n, np.float32)
         return {
             "rows": rows.astype(np.int64),
             "frame_center": frame_center,
             "frame_start": frame_start,
             "frame_stop": frame_stop,
+            "scan_lo": scan_lo,
+            "scan_hi": scan_hi,
+            "mobility_width": mobility_width,
             "window_len": bucket_window(max(2 * int(half.max()) + 1, 16)),
         }
 
@@ -223,15 +247,14 @@ class CandidateScoring:
         W = geo["window_len"]
         dev = dia.device_arrays(1, self.device)
         lib_dev = self._upload_library(lib)
-        geo_dev = {
-            k: torch.from_numpy(geo[k]).to(self.device)
-            for k in ("rows", "frame_center", "frame_start", "frame_stop")
-        }
+        geo_dev = {k: torch.from_numpy(geo[k]).to(self.device) for k in GEO_KEYS}
+        S = dia.n_scan_bins if dia.has_mobility else 1
         static_kw = dict(
             n_cycles=dev["n_cycles"],
             n_bins=dia.n_bins,
             bin_mz_min=dia.bin_mz_min,
             bin_width=dia.coarse_bin_width,
+            n_scan_bins=S,
             slab=cfg.gather_slab,
             window_len=W,
             quant_window=cfg.quant_window,
@@ -240,24 +263,27 @@ class CandidateScoring:
             compute_dtype=cfg.compute_dtype,
         )
 
+        # 4D scan-profile extraction is S times heavier: cap the batch
+        cap = min(cfg.batch_size, 4096) if S > 1 else cfg.batch_size
         parts = []
-        for b0, bsz in batch_schedule(n, cfg.batch_size):
+        for b0, bsz in batch_schedule(n, cap):
             b1 = min(b0 + bsz, n)
-            rows = geo_dev["rows"][b0:b1]
-            g = {k: v.index_select(0, rows) for k, v in lib_dev.items()}
+            gd = {k: v[b0:b1] for k, v in geo_dev.items()}
+            g = {k: v.index_select(0, gd["rows"]) for k, v in lib_dev.items()}
             features, valid, frag_out = score_candidates_batch(
                 dev["peak_packed"], dev["cell_start"], dev["cycle_rt"],
                 g["frag_mz"], g["frag_valid"], g["frag_intensity"], g["frag_type"],
                 g["frag_position"], g["iso_mz"], g["iso_intensity"],
                 g["ms2_slot"], g["ms1_slot"], g["win_lo"], g["win_hi"],
                 cfg.quad_sigma, cfg.quad_delta_mu,
-                geo_dev["frame_center"][b0:b1], geo_dev["frame_start"][b0:b1],
-                geo_dev["frame_stop"][b0:b1],
+                gd["frame_center"], gd["frame_start"], gd["frame_stop"],
                 cfg.fragment_mz_tolerance, cfg.precursor_mz_tolerance,
+                peak_scanbin=dev["peak_scanbin"], scan_lo=gd["scan_lo"],
+                scan_hi=gd["scan_hi"], mobility_width=gd["mobility_width"],
                 **static_kw,
             )
             features, frag_out = round_transport(features, frag_out)
-            keep = ("mass_error", "height", "intensity", "correlation", "valid", "obs_intensity")
+            keep = ("mass_error", "height", "intensity", "correlation", "valid", "obs_intensity", "scan_com")
             parts.append(
                 (
                     features.cpu().numpy(),
@@ -293,6 +319,16 @@ class CandidateScoring:
             psm[f"obs_intensity_{o}"] = frag_out["obs_intensity"][keep_rows, o]
             psm[f"obs_win_lo_{o}"] = lib["win_lo"][rows, o]
             psm[f"obs_win_hi_{o}"] = lib["win_hi"][rows, o]
+        dia = self.dia
+        if dia.has_mobility and dia.n_scan_bins > 1:
+            # scan centre of mass (bins) -> mobility; the scan window's width
+            S = dia.n_scan_bins
+            span = dia.mobility_max - dia.mobility_min
+            com = frag_out["scan_com"][keep_rows]
+            psm["mobility_observed"] = np.where(
+                com > 0, dia.mobility_min + com / S * span, 0.0
+            ).astype(np.float32)
+            psm["base_width_mobility"] = geo["mobility_width"][keep_rows]
         psm["precursor_idx"] = cand["precursor_idx"][keep_rows]
         psm["rank"] = cand["rank"][keep_rows]
         psm["score"] = (
@@ -314,12 +350,15 @@ class CandidateScoring:
             return psm, empty_fragments()
         cand_frag_valid = lib["frag_valid"][geo["rows"]]
         obs_mask = frag_out["valid"] & cand_frag_valid
-        rr, cc = np.nonzero(obs_mask[keep_rows])
+        fv = cand_frag_valid if cfg.collect_unobserved_fragments else obs_mask
+        rr, cc = np.nonzero(fv[keep_rows])
         sel = (keep_rows[rr], cc)
         lib_sel = (geo["rows"][sel[0]], sel[1])
+        obs_sel = obs_mask[sel]
 
         def observed(a):
-            return a[sel].astype(np.float32)
+            # unobserved slots carry the kernel's padding values
+            return np.where(obs_sel, a[sel], 0.0).astype(np.float32)
 
         fragments = {
             "precursor_idx": cand["precursor_idx"][keep_rows][rr],

@@ -1,9 +1,10 @@
 """Host driver of candidate selection.
 
 Prepares the per-precursor query arrays on the host (numpy), uploads them
-once, runs ``ops/selection.select_candidates_batch`` over a power-of-two
-batch schedule on the device, and decodes the candidates into a column
-dict in absolute (fine) cycle coordinates.
+once, runs ``ops/selection.select_candidates_batch`` (or, on ion-mobility
+data, ``select_candidates_batch_4d``) over a power-of-two batch schedule on
+the device, and decodes the candidates into a column dict in absolute
+(fine) cycle coordinates and, on 4D data, scan-bin coordinates.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import numpy as np
 import torch
 
 from alphadia_torch.constants.settings import MASS_NEUTRON_AVG
-from alphadia_torch.ops.selection import select_candidates_batch
+from alphadia_torch.ops.selection import select_candidates_batch, select_candidates_batch_4d
 from alphadia_torch.ops.smooth import gaussian_kernel_1d, rt_kernel_sigma
 from alphadia_torch.rawdata.diadata import DiaData
 from alphadia_torch.search.common import assign_observation_slots, top_k_fragment_order
@@ -54,9 +55,15 @@ class SelectionConfig:
     center_fraction: float = 0.5
     min_size_rt: int = 3
     max_size_rt: int = 15
+    # 4D (ion mobility) extents, in scan bins
+    f_mobility: float = 0.99
+    min_size_mobility: int = 2
+    max_size_mobility: int = 6
     join_close_candidates: bool = True
     join_close_candidates_cycle_threshold: float = 0.6
     peak_cycle_tolerance: int = 3
+    # 4D close-peak suppression needs both tolerances to hold
+    peak_scan_tolerance: int = 3
     # merge adjacent cycles while the RT window exceeds 512 cycles
     # (pre-calibration searches): k x less XIC work, cells sum
     coarsen_wide_windows: bool = True
@@ -208,17 +215,36 @@ class CandidateSelection:
             join_close_candidates=cfg.join_close_candidates,
             join_cycle_threshold=cfg.join_close_candidates_cycle_threshold,
             peak_cycle_tolerance=max(1, cfg.peak_cycle_tolerance // stride),
-            cycle_stride=stride,
         )
+        use_4d = dia.has_mobility and dia.n_scan_bins > 1
+        if use_4d:
+            # the score map keeps the scan axis: the dense [B, Q, S, W]
+            # intermediates are S times the 3D footprint, so cap the batch.
+            # The strided cell_start alone coarsens: cells sum `stride` cycles
+            select = select_candidates_batch_4d
+            peaks = (dev["peak_mz"], dev["peak_intensity"], dev["peak_scanbin"])
+            cap = min(cfg.batch_size, 4096)
+            static_kw.update(
+                n_scan_bins=dia.n_scan_bins,
+                min_size_mobility=cfg.min_size_mobility,
+                max_size_mobility=cfg.max_size_mobility,
+                f_mobility=cfg.f_mobility,
+                peak_scan_tolerance=cfg.peak_scan_tolerance,
+            )
+        else:
+            select = select_candidates_batch
+            peaks = (dev["peak_packed"],)
+            cap = cfg.batch_size
+            static_kw.update(cycle_stride=stride)
         keys = ("frag_slot", "frag_mz", "iso_slot", "iso_mz", "cycle_start", "n_valid_fragments")
         batch_dev = {k: torch.from_numpy(arrays[k]).to(self.device) for k in keys}
 
         results = []
-        for b0, bsz in batch_schedule(n, cfg.batch_size):
+        for b0, bsz in batch_schedule(n, cap):
             b1 = min(b0 + bsz, n)
             sl = {k: v[b0:b1] for k, v in batch_dev.items()}
-            res = select_candidates_batch(
-                dev["peak_packed"], dev["cell_start"],
+            res = select(
+                *peaks, dev["cell_start"],
                 sl["frag_slot"], sl["frag_mz"], sl["iso_slot"], sl["iso_mz"],
                 sl["cycle_start"], kernel,
                 cfg.fragment_mz_tolerance, cfg.precursor_mz_tolerance,
@@ -227,12 +253,16 @@ class CandidateSelection:
             results.append((b0, res))
 
         # the JAX driver ships scores as float16 when every value fits 16 bits
-        f16_scores = dia.n_cycles < 32000 and cfg.candidate_count <= 16
+        f16_scores = (
+            dia.n_cycles < 32000
+            and cfg.candidate_count <= 16
+            and (not use_4d or dia.n_scan_bins < 32000)
+        )
         frames = [self._decode(b0, res, stride, f16_scores) for b0, res in results]
         out = {k: np.concatenate([f[k] for f in frames]) for k in CANDIDATE_COLUMNS}
         logger.info(
-            "Candidate selection: %d candidates for %d precursors (window %d cycles)",
-            len(out["precursor_idx"]), n, W,
+            "Candidate selection: %d candidates for %d precursors (window %d cycles%s)",
+            len(out["precursor_idx"]), n, W, f", {dia.n_scan_bins} scan bins" if use_4d else "",
         )
         return out
 
@@ -244,13 +274,18 @@ class CandidateSelection:
             score = score.astype(np.float16).astype(np.float32)
         n_c = len(rows)
         precursor_idx = self.precursor["precursor_idx"].astype(np.int64)
+        if "scan_center" in r:
+            scans = {k: r[k][rows, cands].astype(np.int64) for k in ("scan_start", "scan_center", "scan_stop")}
+        else:  # 3D: the one dummy scan [0, 1)
+            scans = dict(
+                scan_start=np.zeros(n_c, np.int64), scan_center=np.zeros(n_c, np.int64),
+                scan_stop=np.ones(n_c, np.int64),
+            )
         return {
             "precursor_idx": precursor_idx[b0 + rows],
             "rank": r["rank"][rows, cands].astype(np.uint8),
             "score": score,
-            "scan_start": np.zeros(n_c, np.int64),
-            "scan_center": np.zeros(n_c, np.int64),
-            "scan_stop": np.ones(n_c, np.int64),
+            **scans,
             # coarse cells map back to fine cycles (stride 1 is the identity)
             "frame_start": r["cycle_start"][rows, cands].astype(np.int64) * stride,
             "frame_center": np.minimum(

@@ -4,25 +4,28 @@
     python3 chip_smoke.py              # full width
     python3 chip_smoke.py --profile    # also trace one pass of the main path
 
+Two paths, each of three passes: candidate selection (rt_tolerance 60 s)
+-> scoring (bfloat16) -> a wide-window selection (450 s, coarsened to
+stride 2). The 3D path runs the synthetic DIA run of the JAX package's
+benchmark (6000 peptides + decoys = 12,000 precursors, 12 windows, 600
+cycles); the 4D path a timsTOF-like run of the same generator with ion
+mobility in 8 scan bins (25,000 peptides + decoys = 50,000 precursors).
+
 Phases, in order; any failure exits non-zero:
 
 1. the card: name, count, and ``nvidia-smi`` name and power limit;
 2. build the XIC kernel (``alphadia_torch/csrc/xic.cu``) with nvcc;
-3. the kernel against its plain PyTorch version on the card, on the inputs
-   that the main path hands it (recorded from a warm-up pass of the path)
-   for variants (a) intensity only, (b) with the m/z plane as a delta, (d)
-   the coarse view, and (c) the scan-window crop on a 4D world; and the
-   path on the card against the same path on the CPU on a small world,
-   scoring in float32 and in bfloat16;
-4. the main path at full width: the synthetic DIA run of the JAX package's
-   benchmark (6000 peptides + decoys = 12,000 precursors, 12 windows, 600
-   cycles), candidate selection (rt_tolerance 60 s) -> scoring (bfloat16)
-   -> a wide-window selection (450 s, coarsened to stride 2), with the
-   kernel's launches counted per pass; then ``REPEATS`` more timed
-   passes for the spread;
-5. the kernel alone (CUDA events) on each recorded launch of the main path,
-   beside the plain version and the least time the card needs for the
-   bytes it must move;
+3. the kernel against its plain PyTorch version on the card, on every
+   launch of a recorded warm-up of both paths: variants (a) intensity
+   only, (b) with the m/z plane as a delta, (d) the coarse view on the 3D
+   path, (c) the scan-window crop on every 4D scoring batch; and each path
+   on the card against the same path on the CPU on a small world, scoring
+   in float32 and in bfloat16;
+4. both paths at full width, the kernel's launches counted per pass; the
+   truth, PSM (and, 4D, scan-centre) shares; then more timed passes for
+   the spread (``--profile``: one traced pass of each path);
+5. the kernel alone (CUDA events) on each recorded launch, beside the plain
+   version and the least time the card needs for the bytes it must move;
 6. the ``{"kernels": [...]}`` line, then the card's name and power limit,
    then the ``{"ok": true, ...}`` line last.
 """
@@ -41,10 +44,14 @@ import numpy as np
 # H100 SXM data sheet: HBM3 rate and float32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
-# the bench world's size, and the repetitions of the timings
+# the worlds' sizes, and the repetitions of the timings
 N_PEPTIDES = 6000
+N_PEPTIDES_4D = 25000
+N_SCAN_BINS = 8
 N_CYCLES = 600
-REPEATS = 5  # timed passes of the main path after the counted one
+REPEATS = 5  # timed passes of the 3D path after the counted one
+REPEATS_4D = 3
+SCAN_BATCH = 4096  # the 4D drivers' batch cap
 KERNEL_REPS = 20
 PLAIN_REPS = 3
 # kernel vs plain (rtol, atol): intensities; the m/z plane as absolute m/z;
@@ -55,9 +62,16 @@ TOL_MZ_ABSOLUTE = (1e-5, 1e-2)
 TOL_MZ_DELTA = (1e-5, 1e-6)
 # share of detectable targets whose best candidate lies within 3 cycles of
 # the true apex, and share of them with a PSM: the bench world reads 1.0
-# for each, so these bounds allow a few in a thousand to move
+# for each, and so do the JAX package's 4D drivers on a small 4D world of
+# the generator, so these bounds allow a few in a thousand to move
 TRUTH_SHARE_MIN = 0.995
 PSM_SHARE_MIN = 0.995
+# ... except the 4D wide-window (450 s, stride 2) pass: at the 4D world's
+# per-window density the JAX package's own 4D drivers read 0.9347 there
+# (`PYTHONPATH=. python tests/test_torch_slice_4d.py --peptides 6250
+# --windows 3`, on the CPU: a quarter of the world, 3 windows instead of 12;
+# candidates identical to the port's), so the gate is that less 0.005
+TRUTH_SHARE_WIDE_4D_MIN = 0.9297
 # the path on the card against the path on the CPU, on a small world
 CANDIDATE_MATCH_MIN = 0.99
 FEATURE_REL_TOL = 1e-2
@@ -117,7 +131,7 @@ def make_world(n_peptides, n_cycles, seed=5, **kw):
         )
     )
     prec, frag = add_synthetic_decoys(prec, frag)
-    return DiaData.from_spectra(spectra), prec, frag
+    return DiaData.from_spectra(spectra, n_scan_bins=N_SCAN_BINS), prec, frag
 
 
 def select(dia, prec, frag, device, rt_tolerance, batch_size=16384):
@@ -134,21 +148,27 @@ def score(dia, prec, frag, cands, device, compute_dtype, batch_size=8192):
     return CandidateScoring(dia, prec, frag, cfg, device=device)(cands)
 
 
-def main_path(dia, prec, frag, device=None):
-    """The three passes of the main path, each timed on the host clock
-    after a synchronise; returns (outputs, seconds, launches per pass)."""
+def main_path(world, tag="", device=None, rec=None):
+    """The three passes of one path, each timed on the host clock after a
+    synchronise, with the kernel's launch count set to 0 just before each
+    and read just after; returns (outputs, seconds, launches), keyed by
+    pass name + ``tag``. With ``rec`` the kernel's calls are recorded."""
     import torch
 
     from alphadia_torch.ops import xic_cuda
 
+    dia, prec, frag = world
     device = device or DEVICE
     out, secs, launches = {}, {}, {}
     steps = (
         ("selection", lambda: select(dia, prec, frag, device, 60.0)),
-        ("scoring", lambda: score(dia, prec, frag, out["selection"], device, "bfloat16")),
+        ("scoring", lambda: score(dia, prec, frag, out["selection" + tag], device, "bfloat16")),
         ("selection_wide", lambda: select(dia, prec, frag, device, 450.0)),
     )
     for name, fn in steps:
+        name += tag
+        if rec is not None:
+            rec.stage = name
         torch.cuda.synchronize()
         xic_cuda.launches = 0
         t0 = time.perf_counter()
@@ -206,6 +226,21 @@ def truth_share(dia, prec, cands) -> float:
     return float(np.mean(hit)) if hit else 0.0
 
 
+def scan_share(dia, prec, cands) -> float:
+    """Share of detectable targets whose best candidate's scan_center lies
+    within 1 bin of the store's bin of the true mobility."""
+    det = prec["_truth_detectable"] & (prec["decoy"] == 0)
+    span = max(dia.mobility_max - dia.mobility_min, 1e-9)
+    truth_bin = np.clip(
+        ((prec["_truth_mobility"] - dia.mobility_min) / span * dia.n_scan_bins).astype(np.int64),
+        0, dia.n_scan_bins - 1,
+    )
+    best = cands["rank"] == 0
+    where = {int(p): int(c) for p, c in zip(cands["precursor_idx"][best], cands["scan_center"][best])}
+    hit = [abs(where.get(int(p), -10**6) - int(c)) <= 1 for p, c in zip(prec["precursor_idx"][det], truth_bin[det])]
+    return float(np.mean(hit)) if hit else 0.0
+
+
 # ---------------------------------------------------------------------------
 # kernel vs plain
 # ---------------------------------------------------------------------------
@@ -233,65 +268,34 @@ def compare(args, kw):
     return res
 
 
-def scan_window_inputs(device, B, Q, W, n_cycles=300):
-    """Queries on the stored peaks of a 4D world, with random scan windows,
-    at the scoring path's batch shape."""
-    import torch
-
-    from alphadia_torch.rawdata import DiaData
-    from alphadia_torch.testing.synthetic import SyntheticConfig, make_synthetic_dia
-
-    spectra, _, _ = make_synthetic_dia(
-        SyntheticConfig(n_peptides=600, n_windows=12, n_cycles=n_cycles, with_mobility=True, seed=7)
-    )
-    dia = DiaData.from_spectra(spectra, n_scan_bins=8)
-    dev = dia.device_arrays(1, device)
-    rng = np.random.default_rng(7)
-    pick = rng.integers(0, dia.n_stored_peaks, (B, Q))
-    row = np.searchsorted(dia.cell_start[:, :, 0].reshape(-1), pick, side="right") - 1
-    slot = (row // dia.n_bins).astype(np.int32)
-    qmz = dia.peak_mz[pick].astype(np.float32)
-    cyc = dev["peak_packed"][torch.from_numpy(pick[:, 0]).to(device), 2].long().cpu().numpy()
-    c0 = (cyc - rng.integers(0, W, B)).astype(np.int32)
-    lo = rng.integers(0, 6, B).astype(np.int32)
-    hi = (lo + rng.integers(1, 4, B)).astype(np.int32)
-
-    def t(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-
-    args = (dev["peak_packed"], dev["cell_start"], t(slot), t(qmz), 15.0, t(c0))
-    kw = dict(
-        n_cycles=dev["n_cycles"], n_bins=dia.n_bins, bin_mz_min=dia.bin_mz_min,
-        bin_width=dia.coarse_bin_width, slab=256, window_len=W, with_mz=True,
-        mz_as_delta=True, scan_lo=t(lo), scan_hi=t(hi),
-    )
-    return args, kw
-
-
-def small_world_agreement():
-    """The path on the card against the same path on the CPU (plain
-    version) on a small world: candidates, and the PSM features of float32
-    and of bfloat16 scoring. Returns the candidate match, the candidate
-    count, and per compute dtype the paired PSMs and their feature
-    deviations relative to max(|value|, 1) (mass errors: absolute, ppm)."""
+def small_world_agreement(with_mobility):
+    """One path on the card against the same path on the CPU (plain
+    version) on a small world: candidates of the 60 s and the wide 450 s
+    selection, and the PSM features of float32 and of bfloat16 scoring.
+    Returns per selection the candidate match and count, and per compute
+    dtype the paired PSMs and their feature deviations relative to
+    max(|value|, 1) (mass errors: absolute, ppm)."""
     from alphadia_torch.search.scoring import FEATURE_COLUMNS
 
-    dia, prec, frag = make_world(300, 300, seed=11)
+    dia, prec, frag = make_world(300, 300, seed=11, with_mobility=with_mobility)
     out = {}
     for device in (DEVICE, "cpu"):
         dia.free_device()
-        cands = select(dia, prec, frag, device, 60.0, batch_size=1024)
-        psms = {dt: score(dia, prec, frag, cands, device, dt, batch_size=1024)[0] for dt in ("float32", "bfloat16")}
+        cands = {rt: select(dia, prec, frag, device, rt, batch_size=1024) for rt in (60.0, 450.0)}
+        psms = {dt: score(dia, prec, frag, cands[60.0], device, dt, batch_size=1024)[0] for dt in ("float32", "bfloat16")}
         out[device] = (cands, psms)
     dia.free_device()
     (cg, pg), (cc, pc) = out[DEVICE], out["cpu"]
     cols = ("precursor_idx", "rank", "frame_start", "frame_center", "frame_stop")
+    cols += ("scan_start", "scan_center", "scan_stop") if with_mobility else ()
 
     def keys(c):
         return set(zip(*(c[k].tolist() for k in cols)))
 
-    kg, kc = keys(cg), keys(cc)
-    cand_match = len(kg & kc) / max(len(kg | kc), 1)
+    match = {}
+    for rt in cg:
+        kg, kc = keys(cg[rt]), keys(cc[rt])
+        match[rt] = len(kg & kc) / max(len(kg | kc), 1), len(kc)
     devs = {}
     for dt in pg:
         g, c = pg[dt], pc[dt]
@@ -302,7 +306,40 @@ def small_world_agreement():
             f: np.abs(g[f][gi].astype(np.float64) - c[f][ci]) / (1.0 if f in MASS_ERRORS else np.maximum(np.abs(c[f][ci]), 1.0))
             for f in FEATURE_COLUMNS
         }
-    return cand_match, len(kc), devs
+    return match, devs
+
+
+def check_agreement(label, with_mobility):
+    match, devs = small_world_agreement(with_mobility)
+    for rt, (cand_match, n_c) in match.items():
+        log(
+            f"[3] {label} small world, rt {rt:.0f} s selection, card vs CPU: {cand_match:.4f} of {n_c} candidates "
+            f"identical (bound {CANDIDATE_MATCH_MIN})"
+        )
+        if cand_match < CANDIDATE_MATCH_MIN:
+            raise AssertionError(f"{label}: candidates on the card disagree with the plain path on the CPU")
+    n_p, n_cpu, d = devs["float32"]
+    feat_ok = float(np.mean(np.concatenate([v <= FEATURE_REL_TOL for v in d.values()])))
+    log(
+        f"[3] {label} small world, float32 scoring: {n_p} of {n_cpu} PSMs paired, {feat_ok:.4f} of feature "
+        f"values within {FEATURE_REL_TOL} (bound 0.99)"
+    )
+    if n_p < 0.99 * n_cpu or feat_ok < 0.99:
+        raise AssertionError(f"{label}: float32 scoring on the card disagrees with the plain path on the CPU")
+    n_p, n_cpu, d = devs["bfloat16"]
+    med = {f: float(np.median(v)) for f, v in d.items()}
+    q90 = {f: float(np.quantile(v, 0.9)) for f, v in d.items()}
+    worst_f = max(med, key=lambda f: med[f] / BF16_TOL.get(f, BF16_TOL_DEFAULT))
+    worst_q = max(q90, key=q90.get)
+    worst_m = max(d, key=lambda f: d[f].max())
+    log(
+        f"[3] {label} small world, bfloat16 scoring: {n_p} of {n_cpu} PSMs paired; largest median deviation against "
+        f"its tolerance: {worst_f} {med[worst_f]:.3g} (tol {BF16_TOL.get(worst_f, BF16_TOL_DEFAULT)}); largest 90th "
+        f"percentile: {worst_q} {q90[worst_q]:.3g} (tol {FEATURE_REL_TOL}); largest: {worst_m} {d[worst_m].max():.3g}"
+    )
+    bad = [f for f in d if med[f] > BF16_TOL.get(f, BF16_TOL_DEFAULT) or q90[f] > FEATURE_REL_TOL]
+    if n_p < 0.99 * n_cpu or bad:
+        raise AssertionError(f"{label}: bfloat16 scoring on the card disagrees with the plain path on the CPU: {bad}")
 
 
 # ---------------------------------------------------------------------------
@@ -384,43 +421,180 @@ def plain_peak_bytes(args, kw) -> int:
     return torch.cuda.max_memory_allocated() - base
 
 
-def profile_main_path(dia, prec, frag, out_dir: Path):
-    """Trace one more pass of the main path with torch.profiler: device
-    busy share, the XIC kernel's share, and the ops that take the device
-    time (table written to ``out_dir/profile_main_path.txt``)."""
+class Annotate:
+    """Wraps the 4D path's plain extractions in ``record_function`` ranges
+    (for one traced pass only), so the trace can sum their device time."""
+
+    NAMES = ("extract_xic_4d", "extract_scan_profile")
+
+    def __enter__(self):
+        import alphadia_torch.ops.scoring as ops_scoring
+        import alphadia_torch.ops.selection as ops_selection
+        from torch.profiler import record_function
+
+        self.saved = []
+        for m in (ops_selection, ops_scoring):
+            for name in self.NAMES:
+                if hasattr(m, name):
+                    fn = getattr(m, name)
+
+                    def wrapped(*a, _fn=fn, _name=name, **kw):
+                        with record_function(_name):
+                            return _fn(*a, **kw)
+
+                    self.saved.append((m, name, fn))
+                    setattr(m, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for m, name, fn in self.saved:
+            setattr(m, name, fn)
+
+
+def profile_main_path(world, tag, out_dir: Path):
+    """Trace one more pass of a path with torch.profiler: device busy share,
+    the XIC kernel's device time, the device time under the 4D plain
+    extractions, and the ops that take the device time (table written to
+    ``out_dir/profile_main_path{tag}.txt``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     def dev_us(e):
+        return getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+
+    def self_dev_us(e):
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
+    with Annotate(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
         t0 = time.perf_counter()
-        _, secs, _ = main_path(dia, prec, frag)
+        _, secs, _ = main_path(world, tag)
         wall = time.perf_counter() - t0
+    rows = prof.key_averages()
     # device-side events only: an aten op's own row repeats its kernels' time
     events = sorted(
-        (e for e in prof.key_averages() if str(getattr(e, "device_type", "")).endswith("CUDA")),
-        key=dev_us, reverse=True,
+        (e for e in rows if str(getattr(e, "device_type", "")).endswith("CUDA") and e.key not in Annotate.NAMES),
+        key=self_dev_us, reverse=True,
     )
-    busy = sum(dev_us(e) for e in events) * 1e-6
-    xic = sum(dev_us(e) for e in events if "xic_kernel" in e.key) * 1e-6
-    lines = [f"{dev_us(e) / 1e3:10.3f} ms {e.count:7d}x  {e.key[:110]}" for e in events[:40]]
+    busy = sum(self_dev_us(e) for e in events) * 1e-6
+    xic = sum(self_dev_us(e) for e in events if "xic_kernel" in e.key) * 1e-6
+    # the kernels launched under each annotated range, from its host-side row
+    under = {
+        n: sum(dev_us(e) for e in rows if e.key == n and not str(getattr(e, "device_type", "")).endswith("CUDA")) * 1e-6
+        for n in Annotate.NAMES
+    }
+    counts = {n: sum(e.count for e in rows if e.key == n and not str(getattr(e, "device_type", "")).endswith("CUDA")) for n in Annotate.NAMES}
+    lines = [f"{self_dev_us(e) / 1e3:10.3f} ms {e.count:7d}x  {e.key[:110]}" for e in events[:40]]
     out_dir.mkdir(exist_ok=True)
-    (out_dir / "profile_main_path.txt").write_text("\n".join(lines) + "\n")
+    (out_dir / f"profile_main_path{tag}.txt").write_text("\n".join(lines) + "\n")
     log(
-        f"[profile] traced pass: wall {wall:.4f} s (passes {json.dumps({k: round(v, 4) for k, v in secs.items()})}), "
+        f"[profile{tag}] traced pass: wall {wall:.4f} s (passes {json.dumps({k: round(v, 4) for k, v in secs.items()})}), "
         f"device busy {busy:.4f} s = {busy / wall:.3f} of wall, XIC kernel {xic * 1e3:.3f} ms"
     )
+    if any(counts.values()):
+        log(
+            f"[profile{tag}] device time under " + ", ".join(
+                f"{n} {under[n] * 1e3:.3f} ms ({counts[n]} calls, {under[n] / max(busy, 1e-12):.3f} of busy)" for n in Annotate.NAMES
+            )
+        )
     for line in lines[:15]:
-        log(f"[profile] {line}")
+        log(f"[profile{tag}] {line}")
+
+
+def record_and_compare(worlds):
+    """A warm-up of each path with every kernel call recorded; then each
+    call's kernel result against the plain version. Returns the calls and,
+    per variant, the largest abs and rel errors."""
+    import torch
+
+    t0 = time.perf_counter()
+    with Recorder() as rec:
+        warm = {tag: main_path(world, tag, rec=rec)[0] for tag, world in worlds.items()}
+    torch.cuda.synchronize()
+    log(f"[3] warm-up passes of both paths: {len(rec.calls)} kernel launches recorded in {time.perf_counter() - t0:.2f} s")
+    worst = {}
+    for stage, args, kw in rec.calls:
+        res = compare(args, kw)
+        v = variant(kw)
+        B, Q = args[2].shape
+        for plane, (mabs, mrel, bad, total) in zip(("intensity", "mz"), res):
+            log(
+                f"[3] {stage:17s} {v:13s} B={B} Q={Q} W={kw['window_len']} stride={kw.get('cycle_stride', 1)} "
+                f"{plane:9s} max_abs={mabs:.3g} max_rel={mrel:.3g} outside_tol={bad} sum|plain|={total:.6g}"
+            )
+            if bad:
+                raise AssertionError(f"kernel disagrees with the plain version: {stage} {v} {plane}")
+            w = worst.setdefault(v, [0.0, 0.0])
+            w[0], w[1] = max(w[0], mabs), max(w[1], mrel)
+    # the 4D scoring pass launches the kernel with a scan window, twice
+    # (fragments, precursors) on every batch
+    from alphadia_torch.utils.device import batch_schedule
+
+    c4 = [kw for stage, _, kw in rec.calls if stage == "scoring_4d"]
+    batches = len(batch_schedule(len(warm["_4d"]["selection_4d"]["precursor_idx"]), SCAN_BATCH))
+    log(f"[3] 4D scoring: {len(c4)} launches for {batches} batches, {sum(k.get('scan_lo') is not None for k in c4)} with a scan window")
+    if len(c4) != 2 * batches or any(k.get("scan_lo") is None for k in c4):
+        raise AssertionError("the 4D scoring pass does not launch the scan-window kernel on every batch")
+    return rec.calls, worst
+
+
+def path_checks(label, tag, world, out, launches, kernel_passes):
+    """The truth and PSM shares of one path's counted run, its outputs'
+    shape, and that the passes that run the kernel launched it."""
+    from alphadia_torch.search.scoring import FEATURE_COLUMNS
+
+    dia, prec, frag = world
+    cands, (psm, frags), wide = out["selection" + tag], out["scoring" + tag], out["selection_wide" + tag]
+    feats = np.stack([psm[f] for f in FEATURE_COLUMNS], 1)
+    share = truth_share(dia, prec, cands)
+    share_wide = truth_share(dia, prec, wide)
+    wide_min = TRUTH_SHARE_WIDE_4D_MIN if tag else TRUTH_SHARE_MIN
+    log(
+        f"[4] {label}: candidates {len(cands['precursor_idx'])}, PSMs {len(psm['precursor_idx'])}, fragments "
+        f"{len(frags['mz'])}, wide-window candidates {len(wide['precursor_idx'])}"
+    )
+    log(f"[4] {label}: kernel launches per pass: {json.dumps(launches)}")
+    log(
+        f"[4] {label}: truth share (best candidate within 3 cycles of the apex): {share:.4f} (bound {TRUTH_SHARE_MIN}); "
+        f"wide window {share_wide:.4f} (bound {wide_min})"
+    )
+    if tag:
+        log(
+            f"[4] {label}: scan share (best candidate's scan_center within 1 bin of the true mobility's bin, not "
+            f"gated): {scan_share(dia, prec, cands):.4f}; wide window {scan_share(dia, prec, wide):.4f}"
+        )
+        for f in ("fragment_scan_correlation", "template_scan_correlation", "mobility_fwhm", "mobility_observed", "base_width_mobility"):
+            log(f"[4] {label}: {f} non-zero in {float((psm[f] != 0).mean()):.4f} of PSMs, median {float(np.median(psm[f])):.4g}")
+    if min(launches[p + tag] for p in kernel_passes) <= 0:
+        raise AssertionError(f"{label}: a pass that runs the kernel launched it no time: {launches}")
+    if feats.shape != (len(psm["precursor_idx"]), len(FEATURE_COLUMNS)) or not np.isfinite(feats).all():
+        raise AssertionError(f"{label}: PSM features are not finite values of the expected shape")
+    targets = prec["precursor_idx"][prec["_truth_detectable"] & (prec["decoy"] == 0)]
+    psm_share = float(np.isin(targets, psm["precursor_idx"]).mean())
+    log(f"[4] {label}: detectable targets with a PSM: {psm_share:.4f} (bound {PSM_SHARE_MIN})")
+    if psm_share < PSM_SHARE_MIN:
+        raise AssertionError(f"{label}: too few detectable targets were scored")
+    if share < TRUTH_SHARE_MIN or share_wide < wide_min:
+        raise AssertionError(f"{label}: candidates miss the true apexes")
+
+
+def timed_passes(label, world, tag, repeats, name, card):
+    n_prec = len(world[1]["precursor_idx"])
+    walls = [main_path(world, tag)[1] for _ in range(repeats)]
+    rates = sorted(n_prec / (w["selection" + tag] + w["scoring" + tag]) for w in walls)
+    for stage in walls[0]:
+        ms = sorted(w[stage] * 1e3 for w in walls)
+        log(f"[4] {label}: {repeats} more passes, {stage} wall ms: median {np.median(ms):.2f}, min {ms[0]:.2f}, max {ms[-1]:.2f}")
+    log(
+        f"[4] {label}: {repeats} more passes, precursors/s (selection+scoring): median {np.median(rates):.1f}, "
+        f"min {rates[0]:.1f}, max {rates[-1]:.1f} ({name}, {card})"
+    )
 
 
 # ---------------------------------------------------------------------------
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--profile", action="store_true", help="also trace one pass of the main path")
+    ap.add_argument("--profile", action="store_true", help="also trace one pass of each path")
     opt = ap.parse_args(argv)
 
     import torch
@@ -446,132 +620,56 @@ def main(argv=None) -> int:
     lib = xic_cuda.build(verbose=True)
     log(f"[2] built {lib.relative_to(root)} in {time.perf_counter() - t0:.2f} s ({card})")
 
-    # ---- world (set-up) ---------------------------------------------------
-    t0 = time.perf_counter()
-    dia, prec, frag = make_world(N_PEPTIDES, N_CYCLES)
-    log(
-        f"[world] {len(prec['precursor_idx'])} precursors, {len(frag['mz_library'])} fragments, "
-        f"{dia.n_stored_peaks} stored peaks, {dia.n_cycles} cycles x {dia.n_slots} slots, "
-        f"built in {time.perf_counter() - t0:.2f} s on the host"
-    )
+    # ---- worlds (set-up) ----------------------------------------------------
+    worlds = {}
+    for tag, n_pep, kw in (("", N_PEPTIDES, {}), ("_4d", N_PEPTIDES_4D, {"with_mobility": True})):
+        t0 = time.perf_counter()
+        worlds[tag] = dia, prec, frag = make_world(n_pep, N_CYCLES, **kw)
+        log(
+            f"[world{tag}] {len(prec['precursor_idx'])} precursors, {len(frag['mz_library'])} fragments, "
+            f"{dia.n_stored_peaks} stored peaks, {dia.n_cycles} cycles x {dia.n_slots} slots, "
+            f"{dia.n_scan_bins if dia.has_mobility else 1} scan bins, packed store "
+            f"{dia.packed_store().nbytes / 2**20:.1f} MiB, built in {time.perf_counter() - t0:.2f} s on the host"
+        )
 
     # ---- 3. kernel vs plain on the card -----------------------------------
-    t0 = time.perf_counter()
-    with Recorder() as rec:
-        rec.stage = "selection"
-        cands = select(dia, prec, frag, DEVICE, 60.0)
-        rec.stage = "scoring"
-        score(dia, prec, frag, cands, DEVICE, "bfloat16")
-        rec.stage = "selection_wide"
-        select(dia, prec, frag, DEVICE, 450.0)
-    torch.cuda.synchronize()
-    log(f"[3] warm-up pass of the main path: {len(rec.calls)} kernel launches recorded in {time.perf_counter() - t0:.2f} s")
-
-    worst = {}
-    for stage, args, kw in rec.calls:
-        res = compare(args, kw)
-        v = variant(kw)
-        B, Q = args[2].shape
-        for plane, (mabs, mrel, bad, total) in zip(("intensity", "mz"), res):
-            log(
-                f"[3] {stage:14s} {v:12s} B={B} Q={Q} W={kw['window_len']} stride={kw.get('cycle_stride', 1)} "
-                f"{plane:9s} max_abs={mabs:.3g} max_rel={mrel:.3g} outside_tol={bad} sum|plain|={total:.6g}"
-            )
-            if bad:
-                raise AssertionError(f"kernel disagrees with the plain version: {stage} {v} {plane}")
-            w = worst.setdefault(v, [0.0, 0.0])
-            w[0], w[1] = max(w[0], mabs), max(w[1], mrel)
-    first_scoring = next(c for c in rec.calls if c[0] == "scoring")
-    B, Q = first_scoring[1][2].shape
-    args_c, kw_c = scan_window_inputs(DEVICE, B, Q, first_scoring[2]["window_len"])
-    for plane, (mabs, mrel, bad, total) in zip(("intensity", "mz"), compare(args_c, kw_c)):
-        log(f"[3] 4d-world       c_scan_window B={B} Q={Q} {plane:9s} max_abs={mabs:.3g} max_rel={mrel:.3g} outside_tol={bad} sum|plain|={total:.6g}")
-        if bad:
-            raise AssertionError(f"kernel disagrees with the plain version: c_scan_window {plane}")
-        w = worst.setdefault("c_scan_window", [0.0, 0.0])
-        w[0], w[1] = max(w[0], mabs), max(w[1], mrel)
+    calls, worst = record_and_compare(worlds)
     for v in ("a_intensity", "b_mz_delta", "c_scan_window", "d_coarse"):
         if v not in worst:
             raise AssertionError(f"variant {v} was not checked")
         log(f"[3] variant {v}: max_abs_err={worst[v][0]:.3g} max_rel_err={worst[v][1]:.3g} ({card})")
     max_abs_err = max(w[0] for w in worst.values())
+    check_agreement("3D", with_mobility=False)
+    check_agreement("4D", with_mobility=True)
 
-    cand_match, n_c, devs = small_world_agreement()
-    log(f"[3] small world, card vs CPU: {cand_match:.4f} of {n_c} candidates identical (bound {CANDIDATE_MATCH_MIN})")
-    if cand_match < CANDIDATE_MATCH_MIN:
-        raise AssertionError("candidates on the card disagree with the plain path on the CPU")
-    n_p, n_cpu, d = devs["float32"]
-    feat_ok = float(np.mean(np.concatenate([v <= FEATURE_REL_TOL for v in d.values()])))
-    log(
-        f"[3] small world, float32 scoring: {n_p} of {n_cpu} PSMs paired, {feat_ok:.4f} of feature "
-        f"values within {FEATURE_REL_TOL} (bound 0.99)"
-    )
-    if n_p < 0.99 * n_cpu or feat_ok < 0.99:
-        raise AssertionError("float32 scoring on the card disagrees with the plain path on the CPU")
-    n_p, n_cpu, d = devs["bfloat16"]
-    med = {f: float(np.median(v)) for f, v in d.items()}
-    q90 = {f: float(np.quantile(v, 0.9)) for f, v in d.items()}
-    worst_f = max(med, key=lambda f: med[f] / BF16_TOL.get(f, BF16_TOL_DEFAULT))
-    worst_q = max(q90, key=q90.get)
-    worst_m = max(d, key=lambda f: d[f].max())
-    log(
-        f"[3] small world, bfloat16 scoring: {n_p} of {n_cpu} PSMs paired; largest median deviation against its "
-        f"tolerance: {worst_f} {med[worst_f]:.3g} (tol {BF16_TOL.get(worst_f, BF16_TOL_DEFAULT)}); largest 90th "
-        f"percentile: {worst_q} {q90[worst_q]:.3g} (tol {FEATURE_REL_TOL}); largest: {worst_m} {d[worst_m].max():.3g}"
-    )
-    bad = [f for f in d if med[f] > BF16_TOL.get(f, BF16_TOL_DEFAULT) or q90[f] > FEATURE_REL_TOL]
-    if n_p < 0.99 * n_cpu or bad:
-        raise AssertionError(f"bfloat16 scoring on the card disagrees with the plain path on the CPU: {bad}")
-
-    # ---- 4. the main path -------------------------------------------------
-    torch.cuda.reset_peak_memory_stats()
-    out, secs, launches = main_path(dia, prec, frag)
-    peak_mem = torch.cuda.max_memory_allocated()
-    cands, (psm, frags), wide = out["selection"], out["scoring"], out["selection_wide"]
-    n_prec = len(prec["precursor_idx"])
-    from alphadia_torch.search.scoring import FEATURE_COLUMNS
-
-    feats = np.stack([psm[f] for f in FEATURE_COLUMNS], 1)
-    share = truth_share(dia, prec, cands)
-    share_wide = truth_share(dia, prec, wide)
-    total_s = secs["selection"] + secs["scoring"]
-    log(f"[4] candidates {len(cands['precursor_idx'])}, PSMs {len(psm['precursor_idx'])}, fragments {len(frags['mz'])}, wide-window candidates {len(wide['precursor_idx'])}")
-    log(f"[4] kernel launches per pass: {json.dumps(launches)}")
-    log(f"[4] truth share (best candidate within 3 cycles of the apex): {share:.4f} (bound {TRUTH_SHARE_MIN}); wide window {share_wide:.4f} (bound {TRUTH_SHARE_MIN})")
-    log(
-        f"[4] wall s: selection {secs['selection']:.4f}, scoring {secs['scoring']:.4f}, "
-        f"wide selection {secs['selection_wide']:.4f}; {n_prec / total_s:.1f} precursors/s "
-        f"(selection+scoring); max_memory_allocated {peak_mem / 2**30:.3f} GiB ({name}, {card})"
-    )
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a pass of the main path launched no kernel: {launches}")
-    if feats.shape != (len(psm["precursor_idx"]), len(FEATURE_COLUMNS)) or not np.isfinite(feats).all():
-        raise AssertionError("PSM features are not finite values of the expected shape")
-    targets = prec["precursor_idx"][prec["_truth_detectable"] & (prec["decoy"] == 0)]
-    psm_share = float(np.isin(targets, psm["precursor_idx"]).mean())
-    log(f"[4] detectable targets with a PSM: {psm_share:.4f} (bound {PSM_SHARE_MIN})")
-    if psm_share < PSM_SHARE_MIN:
-        raise AssertionError("too few detectable targets were scored")
-    if min(share, share_wide) < TRUTH_SHARE_MIN:
-        raise AssertionError("candidates miss the true apexes")
-    walls = [main_path(dia, prec, frag)[1] for _ in range(REPEATS)]
-    rates = sorted(n_prec / (w["selection"] + w["scoring"]) for w in walls)
-    for stage in secs:
-        ms = sorted(w[stage] * 1e3 for w in walls)
-        log(f"[4] {REPEATS} more passes, {stage} wall ms: median {np.median(ms):.2f}, min {ms[0]:.2f}, max {ms[-1]:.2f}")
-    log(
-        f"[4] {REPEATS} more passes, precursors/s (selection+scoring): median {np.median(rates):.1f}, "
-        f"min {rates[0]:.1f}, max {rates[-1]:.1f} ({name}, {card})"
-    )
+    # ---- 4. the main paths --------------------------------------------------
+    secs, launches = {}, {}
+    for label, tag, kernel_passes in (("3D", "", ("selection", "scoring", "selection_wide")), ("4D", "_4d", ("scoring",))):
+        torch.cuda.reset_peak_memory_stats()
+        out, s_, l_ = main_path(worlds[tag], tag)
+        peak_mem = torch.cuda.max_memory_allocated()
+        secs.update(s_)
+        launches.update(l_)
+        n_prec = len(worlds[tag][1]["precursor_idx"])
+        log(
+            f"[4] {label}: wall s: " + ", ".join(f"{k} {v:.4f}" for k, v in s_.items())
+            + f"; {n_prec / (s_['selection' + tag] + s_['scoring' + tag]):.1f} precursors/s (selection+scoring); "
+            f"max_memory_allocated {peak_mem / 2**30:.3f} GiB ({name}, {card})"
+        )
+        path_checks(label, tag, worlds[tag], out, l_, kernel_passes)
+        del out
+    timed_passes("3D", worlds[""], "", REPEATS, name, card)
+    timed_passes("4D", worlds["_4d"], "_4d", REPEATS_4D, name, card)
     if opt.profile:
-        profile_main_path(dia, prec, frag, root / "chiprun_out")
+        for tag, world in worlds.items():
+            profile_main_path(world, tag, root / "chiprun_out")
 
     # ---- 5. the kernel alone ----------------------------------------------
     from alphadia_torch.ops.xic import extract_xic_packed
 
     tot = dict(ms=0.0, plain_ms=0.0, bytes=0, ops=0, plain_mem=0)
     per_stage = {}
-    for stage, args, kw in rec.calls:
+    for stage, args, kw in calls:
         k_ms = device_ms(lambda: xic_cuda.extract_xic_cuda(*args, **kw), KERNEL_REPS)
         p_ms = device_ms(lambda: extract_xic_packed(*args, **kw), PLAIN_REPS, warmup=1)
         p_mem = plain_peak_bytes(args, kw)
@@ -579,7 +677,7 @@ def main(argv=None) -> int:
         bound = max(nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S) * 1e3
         B, Q = args[2].shape
         log(
-            f"[5] {stage:14s} {variant(kw):12s} B={B} Q={Q} W={kw['window_len']} kernel {k_ms:.4f} ms, "
+            f"[5] {stage:17s} {variant(kw):13s} B={B} Q={Q} W={kw['window_len']} kernel {k_ms:.4f} ms, "
             f"plain {p_ms:.4f} ms (peak {p_mem / 2**20:.1f} MiB), bound {bound:.4f} ms "
             f"({nbytes / 1e6:.2f} MB, {ops / 1e6:.1f} Mop), {nbytes / k_ms / 1e6:.1f} GB/s"
         )

@@ -1,4 +1,6 @@
-"""The CUDA XIC kernel against its plain version, on the card.
+"""The CUDA XIC kernel against its plain version, on the card, on random
+queries and on the launches that a 4D scoring pass makes; and the plain 4D
+extraction rerun on the card, which must give the same bits.
 
 Marked ``gpu``: each test skips where no CUDA card is present, and the
 decision is taken inside the test. On the card the file needs neither JAX
@@ -16,11 +18,14 @@ import numpy as np
 import pytest
 import torch
 
+from alphadia_torch.ops import scoring as ops_scoring
 from alphadia_torch.ops import xic_cuda
-from alphadia_torch.ops.xic import extract_xic_packed
+from alphadia_torch.ops.xic import extract_xic_4d, extract_xic_packed
 from alphadia_torch.rawdata import DiaData
 from alphadia_torch.search.common import kernel_available
-from alphadia_torch.testing.synthetic import SyntheticConfig, make_synthetic_dia
+from alphadia_torch.search.scoring import CandidateScoring, ScoringConfig
+from alphadia_torch.search.selection import CandidateSelection, SelectionConfig
+from alphadia_torch.testing.synthetic import SyntheticConfig, add_synthetic_decoys, make_synthetic_dia
 
 pytest_plugins = ("torch_port_plugin",)
 
@@ -118,3 +123,64 @@ def test_wrapper_raises_on_bad_cuda_inputs(card):
         xic_cuda.extract_xic_cuda(dev["peak_packed"], dev["cell_start"], slot.cpu(), qmz, 10.0, c0, **kw)
     with pytest.raises(ValueError, match="contiguous"):
         xic_cuda.extract_xic_cuda(dev["peak_packed"], dev["cell_start"], slot.t().contiguous().t(), qmz, 10.0, c0, **kw)
+
+
+def test_4d_scoring_launches_match_plain(card, monkeypatch):
+    """Variant (c), the scan-window crop, on the very launches of a 4D
+    scoring pass: every launch carries a scan window and matches the plain
+    version."""
+    spectra, prec, frag = make_synthetic_dia(
+        SyntheticConfig(n_peptides=300, n_windows=6, n_cycles=200, with_mobility=True, seed=3)
+    )
+    prec, frag = add_synthetic_decoys(prec, frag)
+    dia = DiaData.from_spectra(spectra, n_scan_bins=8)
+    cands = CandidateSelection(dia, prec, frag, SelectionConfig(candidate_count=3), device=card)()
+    assert (cands["scan_stop"] > 1).any()
+    calls = []
+
+    def recording(*args, **kw):
+        calls.append((args, kw))
+        return xic_cuda.extract_xic_cuda(*args, **kw)
+
+    monkeypatch.setattr(ops_scoring, "extract_xic_cuda", recording)
+    before = xic_cuda.launches
+    psm, _ = CandidateScoring(dia, prec, frag, ScoringConfig(batch_size=1024), device=card)(cands)
+    torch.cuda.synchronize()
+    assert len(psm["precursor_idx"]) > 100
+    assert calls and xic_cuda.launches - before == len(calls)
+    for args, kw in calls:
+        assert kw["scan_lo"] is not None and kw["with_mz"] and kw["mz_as_delta"]
+        got = xic_cuda.extract_xic_cuda(*args, **kw)
+        ref = extract_xic_packed(*args, **kw)
+        for g, r, atol in zip(got, ref, (1e-3, 1e-6)):
+            torch.testing.assert_close(g, r, rtol=1e-5, atol=atol)
+    assert any(float(extract_xic_packed(*a, **k)[0].sum()) > 0 for a, k in calls)
+
+
+def test_xic_4d_reruns_bit_identical(card):
+    """The plain 4D extraction has no float scatter: a rerun on the card
+    gives the same bits, and the CPU agrees."""
+    dia = _world(with_mobility=True)
+    dev = dia.device_arrays(1, card)
+    slot, qmz, c0 = _queries(dia, dev, 512, 24, 64, 1, 0)
+
+    def t(a, device=card):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    kw = dict(
+        n_cycles=dev["n_cycles"], n_bins=dia.n_bins, bin_mz_min=dia.bin_mz_min,
+        bin_width=dia.coarse_bin_width, n_scan_bins=dia.n_scan_bins, window_len=64, with_mz=True,
+    )
+    args = (dev["peak_mz"], dev["peak_intensity"], dev["peak_scanbin"], dev["cell_start"], t(slot), t(qmz), 15.0, t(c0))
+    first = extract_xic_4d(*args, **kw)
+    again = extract_xic_4d(*args, **kw)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+    assert float(first[0].sum()) > 0
+    cpu = dia.device_arrays(1, "cpu")
+    on_cpu = extract_xic_4d(
+        cpu["peak_mz"], cpu["peak_intensity"], cpu["peak_scanbin"], cpu["cell_start"],
+        t(slot, "cpu"), t(qmz, "cpu"), 15.0, t(c0, "cpu"), **kw,
+    )
+    for a, b, atol in zip(first, on_cpu, (1e-4, 1e-8)):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-6, atol=atol)

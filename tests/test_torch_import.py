@@ -24,8 +24,11 @@ sys.meta_path.insert(0, Block())
 sys.path.insert(0, %r)
 import alphadia_torch
 import alphadia_torch.convert
+import alphadia_torch.ops.features
+import alphadia_torch.ops.peaks
 import alphadia_torch.ops.scoring
 import alphadia_torch.ops.selection
+import alphadia_torch.ops.xic
 import alphadia_torch.search.common
 import alphadia_torch.search.scoring
 import alphadia_torch.search.selection
@@ -64,6 +67,23 @@ def test_default_device_raises_without_cuda():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         CandidateSelection(DiaData.__new__(DiaData), {}, {})
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_device_arrays_default_is_the_card():
+    """``DiaData.device_arrays`` follows the device rule of the entry points:
+    no device means the card, and without one it raises."""
+    from alphadia_torch.rawdata import DiaData
+    from alphadia_torch.testing.synthetic import SyntheticConfig, make_synthetic_dia
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: device=None resolves to it")
+    spectra, _, _ = make_synthetic_dia(SyntheticConfig(n_peptides=10, n_windows=2, n_cycles=20))
+    dia = DiaData.from_spectra(spectra)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dia.device_arrays()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dia.device_arrays(2)
+    assert dia.device_arrays(1, "cpu")["peak_packed"].device.type == "cpu"
 
 
 def test_tf32_is_off():
