@@ -88,7 +88,7 @@ def round_transport(features, frag_out):
 
 
 def score_candidates_batch(
-    peak_packed,  # f32[N, 4] (DiaData.device_arrays)
+    peak_store,  # PeakStore (DiaData.device_arrays)
     cell_start,  # i32[n_slots, n_bins, n_cycles+1]
     cycle_rt,  # f32[n_cycles]
     frag_mz,  # f32[B, KF] library (calibrated) fragment m/z; 0 = pad
@@ -110,7 +110,6 @@ def score_candidates_batch(
     fragment_tol_ppm: float,
     precursor_tol_ppm: float,
     *,
-    peak_scanbin=None,  # i32[N] scan bin per stored peak (4D)
     scan_lo=None,  # i32[B] candidate scan window start (4D)
     scan_hi=None,  # i32[B] exclusive
     mobility_width=None,  # f32[B] |mobility extent| of the scan window
@@ -143,8 +142,8 @@ def score_candidates_batch(
     cycle_start = frame_center - C
     use_4d = n_scan_bins > 1
     if use_4d:
-        if peak_scanbin is None or scan_lo is None or scan_hi is None or mobility_width is None:
-            raise ValueError("4D scoring needs peak_scanbin, scan_lo, scan_hi and mobility_width")
+        if scan_lo is None or scan_hi is None or mobility_width is None:
+            raise ValueError("4D scoring needs scan_lo, scan_hi and mobility_width")
         scan_lo = scan_lo.to(torch.int32)
         scan_hi = scan_hi.to(torch.int32)
         mobility_width = mobility_width.to(f32)
@@ -167,7 +166,7 @@ def score_candidates_batch(
     fslot = torch.where(frag_valid[:, :, None], ms2_slot[:, None, :], -1).to(torch.int32)
     fmzq = frag_mz[:, :, None].expand(B, KF, O2)
     d_frag_int, d_frag_dmz = extract_xic_cuda(
-        peak_packed, cell_start, fslot.reshape(B, KF * O2).contiguous(),
+        peak_store, cell_start, fslot.reshape(B, KF * O2).contiguous(),
         fmzq.reshape(B, KF * O2).contiguous(), fragment_tol_ppm, cycle_start, **xic_kw,
     )
     d_frag_int = d_frag_int.reshape(B, KF, O2, W) * wmask[:, None, None, :]
@@ -182,7 +181,7 @@ def score_candidates_batch(
     islot = ms1_slot[:, None, :].expand(B, KI, O1)
     imzq = iso_mz[:, :, None].expand(B, KI, O1)
     d_prec_int_o, d_prec_dmz_o = extract_xic_cuda(
-        peak_packed, cell_start, islot.reshape(B, KI * O1).contiguous(),
+        peak_store, cell_start, islot.reshape(B, KI * O1).contiguous(),
         imzq.reshape(B, KI * O1).contiguous(), precursor_tol_ppm, cycle_start, **xic_kw,
     )
     d_prec_int_o = d_prec_int_o.reshape(B, KI, O1, W) * wmask[:, None, None, :]
@@ -256,7 +255,7 @@ def score_candidates_batch(
     prec_ctr = (frame_start - cycle_start + 1).to(f32)
     if use_4d:
         prec_height, prec_dmz_obs = _precursor_cells_4d(
-            peak_packed, peak_scanbin, cell_start, islot, imzq, iso_mz,
+            peak_store, cell_start, islot, imzq, iso_mz,
             precursor_tol_ppm, cycle_start, prec_ctr, wmask, scan_lo, scan_hi,
             n_cycles=n_cycles, n_bins=n_bins, bin_mz_min=bin_mz_min,
             bin_width=bin_width, n_scan_bins=n_scan_bins, slab=slab, window_len=W,
@@ -396,7 +395,7 @@ def score_candidates_batch(
     scan_com = torch.zeros((B,), dtype=f32, device=dev)
     if use_4d:
         scan_feat, scan_com = _scan_features(
-            peak_packed, peak_scanbin, cell_start, fslot, fmzq, islot, imzq,
+            peak_store, cell_start, fslot, fmzq, islot, imzq,
             fragment_tol_ppm, precursor_tol_ppm, frame_start, frame_stop,
             cycle_start, scan_lo, scan_hi, mobility_width, iso_intensity, qtf,
             obs_imp, fmask, frag_intensity, intensity_norm,
@@ -471,7 +470,7 @@ def score_candidates_batch(
 
 
 def _precursor_cells_4d(
-    peak_packed, peak_scanbin, cell_start, islot, imzq, iso_mz, precursor_tol_ppm,
+    peak_store, cell_start, islot, imzq, iso_mz, precursor_tol_ppm,
     cycle_start, prec_ctr, wmask, scan_lo, scan_hi, *, n_scan_bins, window_len, **xic_kw,
 ):
     """Precursor height and m/z delta [B, KI] on 4D data: exp(-0.1 * d)
@@ -482,7 +481,7 @@ def _precursor_cells_4d(
     dev = iso_mz.device
     f32 = torch.float32
     i4_int_o, i4_dmz_o = extract_xic_4d(
-        peak_packed[:, 0], peak_packed[:, 1], peak_scanbin, cell_start,
+        peak_store.packed[:, 0], peak_store.packed[:, 1], peak_store.scanbin, cell_start,
         islot.reshape(B, KI * O1), imzq.reshape(B, KI * O1), precursor_tol_ppm,
         cycle_start, n_scan_bins=S, window_len=W, with_mz=True, **xic_kw,
     )
@@ -509,7 +508,7 @@ def _precursor_cells_4d(
 
 
 def _scan_features(
-    peak_packed, peak_scanbin, cell_start, fslot, fmzq, islot, imzq,
+    peak_store, cell_start, fslot, fmzq, islot, imzq,
     fragment_tol_ppm, precursor_tol_ppm, frame_start, frame_stop, cycle_start,
     scan_lo, scan_hi, mobility_width, iso_intensity, qtf, obs_imp, fmask,
     frag_intensity, intensity_norm, *, n_scan_bins, window_len, **xic_kw,
@@ -530,7 +529,7 @@ def _scan_features(
 
     def profile(slot, mz, tol, Q):
         return extract_scan_profile(
-            peak_packed[:, 0], peak_packed[:, 1], peak_scanbin, cell_start,
+            peak_store.packed[:, 0], peak_store.packed[:, 1], peak_store.scanbin, cell_start,
             slot.reshape(B, Q), mz.reshape(B, Q), tol, c_lo, c_hi, n_scan_bins=S, **xic_kw,
         )
 

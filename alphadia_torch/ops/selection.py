@@ -38,7 +38,7 @@ from alphadia_torch.ops.xic_cuda import extract_xic_cuda
 
 
 def select_candidates_batch(
-    peak_packed,  # f32[N, 4] (DiaData.device_arrays)
+    peak_store,  # PeakStore (DiaData.device_arrays)
     cell_start,  # i32[n_slots, n_bins, n_cycles+1]
     frag_slot,  # i32[B, QF] cycle slot per fragment query (-1 pad)
     frag_mz,  # f32[B, QF]
@@ -73,11 +73,11 @@ def select_candidates_batch(
         cycle_stride=cycle_stride,
     )
     dense_frag = extract_xic_cuda(
-        peak_packed, cell_start, frag_slot, frag_mz, fragment_tol_ppm,
+        peak_store, cell_start, frag_slot, frag_mz, fragment_tol_ppm,
         cycle_start, **xic_kw,
     )  # [B, QF, W]
     dense_iso = extract_xic_cuda(
-        peak_packed, cell_start, iso_slot, iso_mz, precursor_tol_ppm,
+        peak_store, cell_start, iso_slot, iso_mz, precursor_tol_ppm,
         cycle_start, **xic_kw,
     )  # [B, QI, W]
 
@@ -125,7 +125,7 @@ _SCAN_SMOOTH = (0.25, 0.5, 0.25)  # fixed 3-tap kernel along the scan axis
 def select_candidates_batch_4d(
     peak_mz,  # f32[N]
     peak_intensity,  # f32[N]
-    peak_scanbin,  # i32[N]
+    peak_scanbin,  # i16[N]
     cell_start,  # i32[n_slots, n_bins, n_cycles+1], fine or strided
     frag_slot,  # i32[B, QF]
     frag_mz,  # f32[B, QF]

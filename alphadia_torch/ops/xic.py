@@ -109,7 +109,7 @@ def extract_xic(
     window_len: int = 64,
     with_mz: bool = False,
     mz_as_delta: bool = False,
-    peak_scanbin: torch.Tensor | None = None,  # i32[N]
+    peak_scanbin: torch.Tensor | None = None,  # i16[N]
     scan_lo: torch.Tensor | None = None,  # i32[B]
     scan_hi: torch.Tensor | None = None,  # i32[B], exclusive
 ):
@@ -140,7 +140,7 @@ def extract_xic(
 def extract_xic_4d(
     peak_mz: torch.Tensor,  # f32[N]
     peak_intensity: torch.Tensor,  # f32[N]
-    peak_scanbin: torch.Tensor,  # i32[N]
+    peak_scanbin: torch.Tensor,  # i16[N]
     cell_start: torch.Tensor,  # i32[n_slots, n_bins, n_cycles+1]
     slot_idx: torch.Tensor,  # i32[B, Q]
     query_mz: torch.Tensor,  # f32[B, Q]
@@ -184,7 +184,7 @@ def extract_xic_4d(
 def extract_scan_profile(
     peak_mz: torch.Tensor,  # f32[N]
     peak_intensity: torch.Tensor,  # f32[N]
-    peak_scanbin: torch.Tensor,  # i32[N]
+    peak_scanbin: torch.Tensor,  # i16[N]
     cell_start: torch.Tensor,  # i32[n_slots, n_bins, n_cycles+1]
     slot_idx: torch.Tensor,  # i32[B, Q]
     query_mz: torch.Tensor,  # f32[B, Q]
@@ -214,7 +214,7 @@ def extract_scan_profile(
 
 
 def extract_xic_packed(
-    peak_packed: torch.Tensor,  # f32[N, 4] (mz, intensity, cycle, scanbin)
+    store,  # PeakStore (DiaData.device_arrays)
     cell_start: torch.Tensor,
     slot_idx: torch.Tensor,
     query_mz: torch.Tensor,
@@ -226,17 +226,16 @@ def extract_xic_packed(
     scan_hi: torch.Tensor | None = None,
     **kw,
 ):
-    """``extract_xic`` with the CUDA kernel's signature: the packed store,
-    ``cycle_stride`` and the scan window. A coarse view's strided
-    ``cell_start`` already merges ``cycle_stride`` cycles into one cell, so
-    the plain version needs no stride."""
+    """``extract_xic`` with the CUDA kernel's signature: the peak store,
+    ``cycle_stride`` and the scan window over the store's scan bins. The
+    plain version takes each cell's peaks from ``cell_start``; a coarse
+    view's strided ``cell_start`` already merges ``cycle_stride`` cycles
+    into one cell, so it needs neither the cycle plane nor the stride."""
     del cycle_stride
     scan_kw = {}
     if scan_lo is not None:
-        scan_kw = dict(
-            peak_scanbin=peak_packed[:, 3].to(torch.int32), scan_lo=scan_lo, scan_hi=scan_hi
-        )
+        scan_kw = dict(peak_scanbin=store.scanbin, scan_lo=scan_lo, scan_hi=scan_hi)
     return extract_xic(
-        peak_packed[:, 0], peak_packed[:, 1], cell_start, slot_idx, query_mz,
+        store.packed[:, 0], store.packed[:, 1], cell_start, slot_idx, query_mz,
         tol_ppm, cycle_start, **kw, **scan_kw,
     )

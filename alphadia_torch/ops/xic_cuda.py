@@ -1,11 +1,14 @@
 """Wrapper of the CUDA XIC kernel (``csrc/xic.cu``).
 
 ``extract_xic_cuda`` computes what ``ops/xic.extract_xic`` computes, from
-the packed peak store ``f32[N, 4]`` (m/z, intensity, cycle, scan bin) of
-``DiaData.device_arrays``, with two additions: ``cycle_stride`` (a power of
-two) for the coarse cell view, and the per-candidate scan window
-``scan_lo``/``scan_hi``. On CPU tensors it runs the plain version; on CUDA
-tensors it launches the kernel or raises.
+the ``PeakStore`` of ``DiaData.device_arrays``: m/z and intensity, and the
+cycle plane (u16, cycle mod 2**16) that the kernel reads for each peak's
+cell. Two additions: ``cycle_stride`` (a power of two) for the coarse cell
+view of a strided ``cell_start``, and the per-candidate scan window
+``scan_lo``/``scan_hi`` over the store's scan-bin plane. On CPU tensors it
+runs the plain version, which takes each cell's peaks from ``cell_start``
+and does not read the cycle plane; on CUDA tensors it launches the kernel
+or raises.
 
 The kernel is built with nvcc at first use into ``build/alphadia_torch/``
 (route: a shared library with a plain C interface, loaded with ctypes).
@@ -56,15 +59,17 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the XIC kernel is built from csrc/xic.cu")
 
 
-def build(verbose: bool = False) -> Path:
-    """Compile ``csrc/xic.cu`` (once per source content); return the .so path."""
-    digest = hashlib.sha1(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+def build(verbose: bool = False, defines: dict | None = None) -> Path:
+    """Compile ``csrc/xic.cu`` (once per source content and ``defines``, the
+    kernel's tuned constants overridden by a sweep); return the .so path."""
+    flags = NVCC_FLAGS + [f"-D{k}={v}" for k, v in sorted((defines or {}).items())]
+    digest = hashlib.sha1(SOURCE.read_bytes() + " ".join(flags).encode()).hexdigest()[:12]
     out = build_dir() / f"libxic_{digest}.so"
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+    cmd = [_nvcc(), *flags, *(["-Xptxas", "-v"] if verbose else []),
            "-o", str(tmp), str(SOURCE)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
@@ -75,24 +80,30 @@ def build(verbose: bool = False) -> Path:
     return out
 
 
-def _library():
+def load(defines: dict | None = None):
+    """Build (if needed) and load the kernel's library, which launches from
+    now on; ``defines`` as for :func:`build`."""
     global _lib
+    lib = ctypes.CDLL(str(build(defines=defines)))
+    fn = lib.xic_launch
+    P, LL, I, F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
+    fn.argtypes = [
+        P, P, P, LL,  # peaks, cycle, scanbin, n_peaks
+        P, LL, I, I, I,  # cell_start, row_len, n_slots, n_bins, n_cycles
+        P, P, P, P, P,  # slot_idx, query_mz, cycle_start, scan_lo, scan_hi
+        I, I, I, I, I,  # B, Q, W, slab, stride_shift
+        F, F, F, F,  # lo_factor, hi_factor, bin_mz_min, bin_width
+        I, I,  # with_mz, mz_as_delta
+        P, P, P,  # out_int, out_mz, stream
+    ]
+    fn.restype = ctypes.c_int
+    _lib = lib
+    return lib
+
+
+def _library():
     with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            fn = lib.xic_launch
-            P, LL, I, F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
-            fn.argtypes = [
-                P, LL, P, LL, I, I, I,  # peaks, n_peaks, cell_start, row_len, n_slots, n_bins, n_cycles
-                P, P, P, P, P,  # slot_idx, query_mz, cycle_start, scan_lo, scan_hi
-                I, I, I, I, I,  # B, Q, W, slab, stride_shift
-                F, F, F, F,  # lo_factor, hi_factor, bin_mz_min, bin_width
-                I, I,  # with_mz, mz_as_delta
-                P, P, P,  # out_int, out_mz, stream
-            ]
-            fn.restype = ctypes.c_int
-            _lib = lib
-    return _lib
+        return _lib if _lib is not None else load()
 
 
 def _check(t, name, dtype, ndim, device):
@@ -109,7 +120,7 @@ def _check(t, name, dtype, ndim, device):
 
 
 def extract_xic_cuda(
-    peak_packed: torch.Tensor,  # f32[N, 4]
+    store,  # PeakStore (DiaData.device_arrays)
     cell_start: torch.Tensor,  # i32[n_slots, n_bins, n_cycles+1]
     slot_idx: torch.Tensor,  # i32[B, Q]
     query_mz: torch.Tensor,  # f32[B, Q]
@@ -139,18 +150,27 @@ def extract_xic_cuda(
         bin_width=bin_width, slab=slab, window_len=window_len,
         with_mz=with_mz, mz_as_delta=mz_as_delta,
     )
-    if peak_packed.device.type == "cpu":
+    peaks, cycle, scanbin = store
+    if peaks.device.type == "cpu":
         return extract_xic_packed(
-            peak_packed, cell_start, slot_idx, query_mz, tol_ppm, cycle_start,
+            store, cell_start, slot_idx, query_mz, tol_ppm, cycle_start,
             scan_lo=scan_lo, scan_hi=scan_hi, **kw,
         )
-    if peak_packed.device.type != "cuda":
-        raise ValueError(f"unsupported device {peak_packed.device}")
+    if peaks.device.type != "cuda":
+        raise ValueError(f"unsupported device {peaks.device}")
+    if window_len * cycle_stride > 1 << 16:
+        raise ValueError("the kernel takes windows of at most 2**16 fine cycles")
 
-    dev = peak_packed.device
-    _check(peak_packed, "peak_packed", torch.float32, 2, dev)
-    if peak_packed.shape[1] != 4 or peak_packed.data_ptr() % 16:
-        raise ValueError("peak_packed must be a 16-byte aligned [N, 4] float32 store")
+    dev = peaks.device
+    _check(peaks, "store.packed", torch.float32, 2, dev)
+    _check(cycle, "store.cycle", torch.uint16, 1, dev)
+    _check(scanbin, "store.scanbin", torch.int16, 1, dev)
+    n_peaks = peaks.shape[0]
+    if (
+        peaks.shape[1] != 2 or n_peaks % 8 or cycle.shape[0] != n_peaks or scanbin.shape[0] != n_peaks
+        or any(t.data_ptr() % 16 for t in store)
+    ):
+        raise ValueError("store must be 16-byte aligned planes of N rows ([N, 2], [N], [N]), N a multiple of 8")
     _check(cell_start, "cell_start", torch.int32, 3, dev)
     if cell_start.shape[1] != n_bins or cell_start.shape[2] < n_cycles + 1:
         raise ValueError(
@@ -176,7 +196,9 @@ def extract_xic_cuda(
     lib = _library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.xic_launch(
-        peak_packed.data_ptr(), peak_packed.shape[0],
+        peaks.data_ptr(), cycle.data_ptr(),
+        scanbin.data_ptr() if scan_lo is not None else None,
+        n_peaks,
         cell_start.data_ptr(), cell_start.shape[2],
         cell_start.shape[0], n_bins, n_cycles,
         slot_idx.data_ptr(), query_mz.data_ptr(), cycle_start.data_ptr(),

@@ -6,14 +6,16 @@ cycle window [c0, c0+W)) reads ONE contiguous slab of peaks. Peaks within
 ``ghost_width`` of a bin edge are duplicated into the neighbouring bin, so a
 ppm window centred anywhere in a bin never needs a second slab.
 
-``device_arrays`` returns torch tensors on the chosen device, including the
-packed per-peak store ``f32[N, 4]`` (m/z, intensity, cycle, scan bin) that
-the CUDA XIC kernel reads as one ``float4`` per peak.
+``device_arrays`` returns torch tensors on the chosen device, among them
+the :class:`PeakStore` that the CUDA XIC kernel reads: m/z and intensity as
+one ``float2`` per peak, and two narrow planes beside them, the cycle
+modulo 2**16 (u16) and the scan bin (i16), 2 B a peak each.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -22,6 +24,16 @@ from alphadia_torch.constants.settings import NO_MOBILITY_VALUE
 from alphadia_torch.rawdata.dia_cycle import determine_dia_cycle
 from alphadia_torch.rawdata.source import SpectrumData
 from alphadia_torch.utils.device import bucket_count, resolve_device
+
+
+class PeakStore(NamedTuple):
+    """The peak store on one device, in the layout the XIC kernel reads.
+    Every plane has one row per stored peak, N a multiple of 8 (padding
+    matches no query), and starts 16-B aligned."""
+
+    packed: torch.Tensor  # f32[N, 2] (m/z, intensity)
+    cycle: torch.Tensor  # u16[N] each row's cycle mod 2**16
+    scanbin: torch.Tensor  # i16[N] each row's scan bin (0 for 3D data)
 
 
 @dataclass
@@ -216,36 +228,42 @@ class DiaData:
         return bucket_count(self.n_cycles, minimum=256)
 
     def packed_store(self) -> np.ndarray:
-        """The packed per-peak store f32[N_p, 4]: m/z, intensity, cycle, scan bin.
+        """The packed per-peak store f32[N_p, 2]: m/z and intensity.
 
-        Peaks are padded to a quarter-pow2 bucket with m/z +inf, intensity 0
-        and cycle -1, so padding matches no query. Cycle and scan bin ride as
-        float32, exact below 2**24.
+        Peaks are padded to a quarter-pow2 bucket with m/z +inf and
+        intensity 0, so padding matches no query.
         """
         n = len(self.peak_mz)
         n_p = bucket_count(n)
-        # cycle of every stored peak, reconstructed from the cell index
-        counts = np.diff(
-            np.concatenate(
-                [self.cell_start[:, :, :-1].reshape(-1), [self.n_stored_peaks]]
-            )
-        )
-        cyc = np.repeat(
-            np.tile(
-                np.arange(self.n_cycles, dtype=np.int32),
-                self.cell_start.shape[0] * self.cell_start.shape[1],
-            ),
-            counts,
-        )
-        scanbin = (
-            self.peak_scanbin if self.peak_scanbin is not None else np.zeros(n, np.int32)
-        )
-        packed = np.empty((n_p, 4), np.float32)
+        packed = np.empty((n_p, 2), np.float32)
         packed[:, 0] = np.concatenate([self.peak_mz, np.full(n_p - n, np.inf, np.float32)])
         packed[:, 1] = np.concatenate([self.peak_intensity, np.zeros(n_p - n, np.float32)])
-        packed[:, 2] = np.concatenate([cyc, np.full(n_p - len(cyc), -1, np.int32)])
-        packed[:, 3] = np.concatenate([scanbin, np.zeros(n_p - n, np.int32)])
         return packed
+
+    def scanbin_plane(self) -> np.ndarray:
+        """The scan bin of every row of :meth:`packed_store`, i16[N_p]
+        (0 for 3D data and for padding)."""
+        n = len(self.peak_mz)
+        if self.n_scan_bins > np.iinfo(np.int16).max:
+            raise ValueError(f"{self.n_scan_bins} scan bins do not fit the 16-bit scan-bin plane")
+        scanbin = self.peak_scanbin if self.peak_scanbin is not None else np.zeros(n, np.int32)
+        return np.concatenate([scanbin, np.zeros(bucket_count(n) - n, np.int32)]).astype(np.int16)
+
+    def cycle_plane(self) -> np.ndarray:
+        """The cycle of every row of :meth:`packed_store` modulo 2**16,
+        u16[N_p]. A slab spans fewer than 2**16 cycles, so the kernel takes
+        a peak's cell as (cycle - window start) mod 2**16."""
+        cyc = self.peak_cycle().astype(np.uint16)
+        return np.concatenate([cyc, np.zeros(bucket_count(len(self.peak_mz)) - len(cyc), np.uint16)])
+
+    def peak_cycle(self) -> np.ndarray:
+        """The cycle of every stored peak, i32[n_stored_peaks], read off the
+        cell index."""
+        counts = np.diff(
+            np.concatenate([self.cell_start[:, :, :-1].reshape(-1), [self.n_stored_peaks]])
+        )
+        n_rows = self.cell_start.shape[0] * self.cell_start.shape[1]
+        return np.repeat(np.tile(np.arange(self.n_cycles, dtype=np.int32), n_rows), counts)
 
     def cell_index(self, stride: int = 1) -> tuple[np.ndarray, np.ndarray, int]:
         """``(cell_start, cycle_rt, n_cycles)`` of the device view.
@@ -253,8 +271,7 @@ class DiaData:
         The cycle axis is padded to ``n_cycles_dev`` (empty cells, rising RT).
         ``stride > 1`` is a cycle-coarsened view of the same store: the peaks
         of ``stride`` adjacent cycles are contiguous per (slot, bin), so
-        coarsening is only a strided ``cell_start``; the packed store keeps
-        FINE per-peak cycles, which the kernel folds by ``stride``.
+        coarsening is only a strided ``cell_start``, over the same store.
         """
         Nc_p = self.n_cycles_dev
         crt = self._cycle_rt_padded()
@@ -274,10 +291,11 @@ class DiaData:
         ``device=None`` is the CUDA card, as for every entry point of the
         port; without one it raises unless ``"cpu"`` is asked for.
 
-        Returns ``peak_packed`` f32[N, 4] (see :meth:`packed_store`), its
-        column views ``peak_mz`` and ``peak_intensity``, ``peak_scanbin`` i32,
-        ``cell_start`` i32, ``cycle_rt`` f32 and the static ``n_cycles``. The
-        coarse view shares the fine view's peak store on the device.
+        Returns ``peak_store`` (a :class:`PeakStore`), the views
+        ``peak_mz``, ``peak_intensity`` and ``peak_scanbin`` of its planes
+        (for the plain 4D extractions), ``cell_start`` i32, ``cycle_rt`` f32
+        and the static ``n_cycles``. The coarse view shares the fine view's
+        peak store on the device.
         """
         device = resolve_device(device)
         key = (str(device), stride)
@@ -285,12 +303,15 @@ class DiaData:
             if stride > 1:
                 d = dict(self.device_arrays(1, device))
             else:
-                packed = torch.from_numpy(self.packed_store()).to(device)
+                store = PeakStore(*(
+                    torch.from_numpy(a).to(device)
+                    for a in (self.packed_store(), self.cycle_plane(), self.scanbin_plane())
+                ))
                 d = {
-                    "peak_packed": packed,
-                    "peak_mz": packed[:, 0],
-                    "peak_intensity": packed[:, 1],
-                    "peak_scanbin": packed[:, 3].to(torch.int32),
+                    "peak_store": store,
+                    "peak_mz": store.packed[:, 0],
+                    "peak_intensity": store.packed[:, 1],
+                    "peak_scanbin": store.scanbin,
                 }
             cs, crt, n_cycles = self.cell_index(stride)
             d["cell_start"] = torch.from_numpy(cs).to(device)

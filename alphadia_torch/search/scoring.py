@@ -271,14 +271,14 @@ class CandidateScoring:
             gd = {k: v[b0:b1] for k, v in geo_dev.items()}
             g = {k: v.index_select(0, gd["rows"]) for k, v in lib_dev.items()}
             features, valid, frag_out = score_candidates_batch(
-                dev["peak_packed"], dev["cell_start"], dev["cycle_rt"],
+                dev["peak_store"], dev["cell_start"], dev["cycle_rt"],
                 g["frag_mz"], g["frag_valid"], g["frag_intensity"], g["frag_type"],
                 g["frag_position"], g["iso_mz"], g["iso_intensity"],
                 g["ms2_slot"], g["ms1_slot"], g["win_lo"], g["win_hi"],
                 cfg.quad_sigma, cfg.quad_delta_mu,
                 gd["frame_center"], gd["frame_start"], gd["frame_stop"],
                 cfg.fragment_mz_tolerance, cfg.precursor_mz_tolerance,
-                peak_scanbin=dev["peak_scanbin"], scan_lo=gd["scan_lo"],
+                scan_lo=gd["scan_lo"],
                 scan_hi=gd["scan_hi"], mobility_width=gd["mobility_width"],
                 **static_kw,
             )

@@ -233,7 +233,7 @@ class CandidateSelection:
             )
         else:
             select = select_candidates_batch
-            peaks = (dev["peak_packed"],)
+            peaks = (dev["peak_store"],)
             cap = cfg.batch_size
             static_kw.update(cycle_stride=stride)
         keys = ("frag_slot", "frag_mz", "iso_slot", "iso_mz", "cycle_start", "n_valid_fragments")

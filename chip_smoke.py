@@ -24,8 +24,10 @@ Phases, in order; any failure exits non-zero:
 4. both paths at full width, the kernel's launches counted per pass; the
    truth, PSM (and, 4D, scan-centre) shares; then more timed passes for
    the spread (``--profile``: one traced pass of each path);
-5. the kernel alone (CUDA events) on each recorded launch, beside the plain
-   version and the least time the card needs for the bytes it must move;
+5. the kernel alone (CUDA events) on each recorded launch, back to back and
+   with the L2 flushed before each run, beside the plain version, the least
+   time the card needs for the bytes the function must move, and the bytes
+   the kernel's loads, copies and stores cover;
 6. the ``{"kernels": [...]}`` line, then the card's name and power limit,
    then the ``{"ok": true, ...}`` line last.
 """
@@ -54,6 +56,8 @@ REPEATS_4D = 3
 SCAN_BATCH = 4096  # the 4D drivers' batch cap
 KERNEL_REPS = 20
 PLAIN_REPS = 3
+FLUSH_BYTES = 64 * 2**20  # written before each L2-flushed run: above the 50 MB L2
+KERNEL_PIECE = 128  # peaks of one piece that the kernel stages (csrc/xic.cu kPiece)
 # kernel vs plain (rtol, atol): intensities; the m/z plane as absolute m/z;
 # the m/z plane as a delta from the query centre, whose values lie within
 # +-tol_ppm * m/z (~1e-2 Da), so its atol sits far below a typical delta
@@ -365,25 +369,37 @@ def device_ms(fn, reps, warmup=2):
     return start.elapsed_time(end) / reps
 
 
-def work(args, kw):
-    """(bytes, operations) that one launch must move and do on these
-    inputs. Bytes: each input read once (the peaks that some query's slab
-    covers; the cell offsets that some query reads; the query arrays) and
-    each output plane written once. Queries of one slot and
-    m/z bin share their peaks, which are counted once. A peak costs its
-    m/z and intensity (8 B), and its scan bin (4 B more) under a scan
-    window: the cells come from ``cell_start``, so its cycle is not part of
-    the function's input. Operations: about eight float operations for
-    each (query, slab peak) pair."""
+def device_ms_flushed(fn, reps, flush):
+    """Median device time of ``fn`` over ``reps`` runs, each timed alone
+    after a write of ``flush`` (64 MiB, more than the 50 MB L2) has evicted
+    what earlier runs left in the cache: the cost a launch pays on the main
+    path, where other kernels run between two XIC launches."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda._sleep(50_000_000)  # the card waits while the host enqueues every run
+    for start, end in events:
+        flush.zero_()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return float(np.median([s.elapsed_time(e) for s, e in events]))
+
+
+def slabs(args, kw):
+    """Per query of one launch: its row of ``cell_start`` (flat offsets of
+    its window's first and last edge, ``lo`` and ``hi``), its slab's first
+    peak ``r0`` and its length, clipped to ``slab`` (0 for a masked query or
+    an empty window)."""
     import torch
 
     from alphadia_torch.ops.xic import query_rows
 
-    peak_packed, cell_start, slot, qmz, _, c0 = args
-    B, Q = slot.shape
-    W = kw["window_len"]
-    n_cycles = kw["n_cycles"]
-    L = cell_start.shape[2]
+    _, cell_start, slot, qmz, _, c0 = args
+    W, n_cycles, L = kw["window_len"], kw["n_cycles"], cell_start.shape[2]
     row = query_rows(
         slot, qmz, n_slots=cell_start.shape[0], n_bins=kw["n_bins"],
         bin_mz_min=kw["bin_mz_min"], bin_width=kw["bin_width"],
@@ -392,19 +408,73 @@ def work(args, kw):
     hi = row * L + (c0.long() + W).clamp(0, n_cycles)[:, None]
     flat = cell_start.reshape(-1)
     r0 = flat[lo].long()
-    slab = torch.where(slot >= 0, (flat[hi].long() - r0).clamp(0, kw["slab"]), 0)
+    length = torch.where(slot >= 0, (flat[hi].long() - r0).clamp(0, kw["slab"]), 0)
+    return lo, hi, r0, length
+
+
+def store_layout(store):
+    """(rows, bytes of a row's m/z and intensity, bytes of its scan bin) of
+    the store a launch was given: a ``PeakStore``, or the f32[N, 4] rows
+    (m/z, intensity, cycle, scan bin) of older commits, so that this script
+    also times their kernel."""
+    if isinstance(store, tuple):
+        return store.packed.shape[0], store.packed[0].nbytes, store.scanbin.element_size()
+    return store.shape[0], 2 * store.element_size(), store.element_size()
+
+
+def work(args, kw):
+    """(bytes, operations) that one launch must move and do on these
+    inputs. Bytes: each input read once (the peaks that some query's slab
+    covers; the cell offsets that some query reads; the query arrays) and
+    each output plane written once. Queries of one slot and m/z bin share
+    their peaks, which are counted once. A peak costs its m/z and intensity
+    (8 B), and its scan bin (2 B more in the store's i16 plane) under a
+    scan window: the cells come from ``cell_start``, so its cycle is not
+    part of the function's input. Operations: about eight float operations
+    for each (query, slab peak) pair."""
+    import torch
+
+    store, _, slot, _, _, _ = args
+    B, Q = slot.shape
+    n_rows, peak_bytes, scan_bytes = store_layout(store)
+    lo, hi, r0, slab = slabs(args, kw)
     # peaks covered by at least one slab: +1 at each start, -1 at each end
-    edge = torch.zeros(peak_packed.shape[0] + 1, dtype=torch.int32, device=slot.device)
+    edge = torch.zeros(n_rows + 1, dtype=torch.int32, device=slot.device)
     live = slab > 0
     edge.index_add_(0, r0[live], torch.ones_like(r0[live], dtype=torch.int32))
     edge.index_add_(0, (r0 + slab)[live], -torch.ones_like(r0[live], dtype=torch.int32))
     unique_peaks = int((torch.cumsum(edge, 0)[:-1] > 0).sum())
     offsets = int(torch.unique(torch.cat([lo[slot >= 0], hi[slot >= 0]])).numel())
     planes = 2 if kw.get("with_mz") else 1
-    nbytes = unique_peaks * 8 + offsets * 4 + B * Q * 8 + B * 4 + planes * B * Q * W * 4
+    nbytes = unique_peaks * peak_bytes + offsets * 4 + B * Q * 8 + B * 4 + planes * B * Q * kw["window_len"] * 4
     if kw.get("scan_lo") is not None:
-        nbytes += unique_peaks * 4 + 2 * B * 4
+        nbytes += unique_peaks * scan_bytes + 2 * B * 4
     return nbytes, 8 * int(slab.sum())
+
+
+def covered_bytes(args, kw) -> int:
+    """The bytes that this launch's loads, copies and stores cover in the
+    kernel of ``csrc/xic.cu``, repeats included: each query's slot and m/z,
+    its row's window start (and scan window); a valid query's two window
+    edges; a live query's slab, cut into pieces of ``KERNEL_PIECE`` peaks,
+    each copied as the 8-peak aligned span that covers it, at 10 B a peak
+    (m/z and intensity, the cycle) or 12 B under a scan window (the scan
+    bin); every output plane once."""
+    _, _, slot, _, _, _ = args
+    B, Q = slot.shape
+    _, _, r0, slab = slabs(args, kw)
+    scan = kw.get("scan_lo") is not None
+    span_peaks = 0
+    for k in range(-(-kw["slab"] // KERNEL_PIECE)):
+        count = (slab - k * KERNEL_PIECE).clamp(0, KERNEL_PIECE)
+        start = r0 + k * KERNEL_PIECE
+        span = (((start + count + 7) // 8) * 8 - (start // 8) * 8)[count > 0]
+        span_peaks += int(span.sum())
+    planes = 2 if kw.get("with_mz") else 1
+    return (
+        B * Q * 8 + B * 4 + (2 * B * 4 if scan else 0) + int((slot >= 0).sum()) * 8
+        + span_peaks * (12 if scan else 10) + planes * B * Q * kw["window_len"] * 4
+    )
 
 
 def plain_peak_bytes(args, kw) -> int:
@@ -625,11 +695,15 @@ def main(argv=None) -> int:
     for tag, n_pep, kw in (("", N_PEPTIDES, {}), ("_4d", N_PEPTIDES_4D, {"with_mobility": True})):
         t0 = time.perf_counter()
         worlds[tag] = dia, prec, frag = make_world(n_pep, N_CYCLES, **kw)
+        dev = dia.device_arrays(1, DEVICE)
+        store = dev["peak_store"] if "peak_store" in dev else (dev["peak_packed"],)
+        store_bytes = sum(t.numel() * t.element_size() for t in store)
         log(
             f"[world{tag}] {len(prec['precursor_idx'])} precursors, {len(frag['mz_library'])} fragments, "
             f"{dia.n_stored_peaks} stored peaks, {dia.n_cycles} cycles x {dia.n_slots} slots, "
-            f"{dia.n_scan_bins if dia.has_mobility else 1} scan bins, packed store "
-            f"{dia.packed_store().nbytes / 2**20:.1f} MiB, built in {time.perf_counter() - t0:.2f} s on the host"
+            f"{dia.n_scan_bins if dia.has_mobility else 1} scan bins, peak store on the card "
+            f"{store_bytes / 2**20:.1f} MiB ({store_bytes / store[0].shape[0]:.0f} B a row), "
+            f"built in {time.perf_counter() - t0:.2f} s"
         )
 
     # ---- 3. kernel vs plain on the card -----------------------------------
@@ -667,31 +741,47 @@ def main(argv=None) -> int:
     # ---- 5. the kernel alone ----------------------------------------------
     from alphadia_torch.ops.xic import extract_xic_packed
 
-    tot = dict(ms=0.0, plain_ms=0.0, bytes=0, ops=0, plain_mem=0)
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=DEVICE)
+    zero = dict(ms=0.0, flushed_ms=0.0, plain_ms=0.0, bytes=0, covered=0, ops=0, plain_mem=0)
+    tot = dict(zero)
     per_stage = {}
     for stage, args, kw in calls:
-        k_ms = device_ms(lambda: xic_cuda.extract_xic_cuda(*args, **kw), KERNEL_REPS)
+        def kernel():
+            return xic_cuda.extract_xic_cuda(*args, **kw)
+
+        k_ms = device_ms(kernel, KERNEL_REPS)
+        f_ms = device_ms_flushed(kernel, KERNEL_REPS, flush)
         p_ms = device_ms(lambda: extract_xic_packed(*args, **kw), PLAIN_REPS, warmup=1)
         p_mem = plain_peak_bytes(args, kw)
         nbytes, ops = work(args, kw)
+        # what the kernel of this checkout covers (older commits' kernels
+        # read their f32[N, 4] store otherwise)
+        cov = covered_bytes(args, kw) if isinstance(args[0], tuple) else 0
         bound = max(nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S) * 1e3
         B, Q = args[2].shape
         log(
-            f"[5] {stage:17s} {variant(kw):13s} B={B} Q={Q} W={kw['window_len']} kernel {k_ms:.4f} ms, "
-            f"plain {p_ms:.4f} ms (peak {p_mem / 2**20:.1f} MiB), bound {bound:.4f} ms "
-            f"({nbytes / 1e6:.2f} MB, {ops / 1e6:.1f} Mop), {nbytes / k_ms / 1e6:.1f} GB/s"
+            f"[5] {stage:17s} {variant(kw):13s} B={B} Q={Q} W={kw['window_len']} kernel {k_ms:.4f} ms (L2 flushed "
+            f"{f_ms:.4f}), plain {p_ms:.4f} ms (peak {p_mem / 2**20:.1f} MiB), bound {bound:.4f} ms "
+            f"({nbytes / 1e6:.2f} MB, {ops / 1e6:.1f} Mop), {nbytes / k_ms / 1e6:.1f} GB/s; the kernel's loads, "
+            f"copies and stores cover {cov / 1e6:.2f} MB"
         )
-        for acc in (tot, per_stage.setdefault(stage, dict(tot, ms=0.0, plain_ms=0.0, bytes=0, ops=0, plain_mem=0))):
+        for acc in (tot, per_stage.setdefault(stage, dict(zero))):
             acc["ms"] += k_ms
+            acc["flushed_ms"] += f_ms
             acc["plain_ms"] += p_ms
             acc["bytes"] += nbytes
+            acc["covered"] += cov
             acc["ops"] += ops
             acc["plain_mem"] = max(acc["plain_mem"], p_mem)
+    del flush
     for stage, acc in per_stage.items():
+        b_ms = acc["bytes"] / HBM_BYTES_PER_S * 1e3
         log(
-            f"[5] per pass {stage}: {launches[stage]} launches, kernel {acc['ms']:.4f} ms, plain {acc['plain_ms']:.4f} ms "
-            f"(peak {acc['plain_mem'] / 2**20:.1f} MiB), bound {acc['bytes'] / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes), "
-            f"wall of the pass {secs[stage] * 1e3:.2f} ms ({name}, {card})"
+            f"[5] per pass {stage}: {launches[stage]} launches, kernel {acc['ms']:.4f} ms ({b_ms / acc['ms']:.2f} of "
+            f"bound), L2 flushed {acc['flushed_ms']:.4f} ms ({b_ms / acc['flushed_ms']:.2f}), plain "
+            f"{acc['plain_ms']:.4f} ms (peak {acc['plain_mem'] / 2**20:.1f} MiB), bound {b_ms:.4f} ms (bytes: "
+            f"{acc['bytes'] / 1e6:.2f} MB of the function, {acc['covered'] / 1e6:.2f} MB covered by the kernel), wall of the "
+            f"pass {secs[stage] * 1e3:.2f} ms ({name}, {card})"
         )
     bound_ms = max(tot["bytes"] / HBM_BYTES_PER_S, tot["ops"] / FP32_OPS_PER_S) * 1e3
     bound_by = "bytes" if tot["bytes"] / HBM_BYTES_PER_S >= tot["ops"] / FP32_OPS_PER_S else "operations"

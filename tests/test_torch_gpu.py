@@ -1,5 +1,8 @@
 """The CUDA XIC kernel against its plain version, on the card, on random
-queries and on the launches that a 4D scoring pass makes; and the plain 4D
+queries, on the kernel's tiling (query counts that leave a block part
+full, a block of masked queries only, a slab of exactly ``slab`` peaks, W
+from 16 to 1024, Q of 1, 3 and 24), on the edges of ``torch_xic_edges``
+and on the launches that a 4D scoring pass makes; and the plain 4D
 extraction rerun on the card, which must give the same bits.
 
 Marked ``gpu``: each test skips where no CUDA card is present, and the
@@ -26,6 +29,7 @@ from alphadia_torch.search.common import kernel_available
 from alphadia_torch.search.scoring import CandidateScoring, ScoringConfig
 from alphadia_torch.search.selection import CandidateSelection, SelectionConfig
 from alphadia_torch.testing.synthetic import SyntheticConfig, add_synthetic_decoys, make_synthetic_dia
+from torch_xic_edges import EDGE_CASES, W as EDGE_W, edge_inputs, edge_world_config
 
 pytest_plugins = ("torch_port_plugin",)
 
@@ -53,7 +57,7 @@ def _queries(dia, dev, B, Q, W, stride, seed):
     slot = (row // dia.n_bins).astype(np.int32)
     slot[0, :2] = -1
     qmz = dia.peak_mz[pick].astype(np.float32)
-    cyc = dia.packed_store()[pick[:, 0], 2].astype(np.int64) // stride
+    cyc = dia.peak_cycle()[pick[:, 0]].astype(np.int64) // stride
     c0 = (cyc - rng.integers(0, W, B)).astype(np.int32)
     c0[1] = -5
     c0[2] = dev["n_cycles"] - 2
@@ -91,22 +95,139 @@ def test_kernel_matches_plain(card, case):
         rng = np.random.default_rng(1)
         lo = rng.integers(0, 6, B).astype(np.int32)
         kw.update(scan_lo=t(lo), scan_hi=t(lo + rng.integers(1, 4, B).astype(np.int32)))
-    args = (dev["peak_packed"], dev["cell_start"], t(slot), t(qmz), 15.0, t(c0))
+    _, ref = _kernel_vs_plain((dev["peak_store"], dev["cell_start"], t(slot), t(qmz), 15.0, t(c0)), kw)
+    assert float(ref[0].sum()) > 0
+
+
+def _kernel_vs_plain(args, kw):
+    """Kernel against plain on one launch, and a rerun bit-identical (no
+    atomics); returns the kernel's planes and the plain version's."""
     before = xic_cuda.launches
     got = xic_cuda.extract_xic_cuda(*args, **kw)
     torch.cuda.synchronize()
     assert xic_cuda.launches == before + 1
     ref = extract_xic_packed(*args, **kw)
-    got = got if with_mz else (got,)
-    ref = ref if with_mz else (ref,)
-    for g, r, atol in zip(got, ref, (1e-3, 1e-6 if mz_as_delta else 1e-2)):
+    got = got if kw.get("with_mz") else (got,)
+    ref = ref if kw.get("with_mz") else (ref,)
+    for g, r, atol in zip(got, ref, (1e-3, 1e-6 if kw.get("mz_as_delta") else 1e-2)):
         torch.testing.assert_close(g, r, rtol=1e-5, atol=atol)
-    assert float(ref[0].sum()) > 0
-    # repeated launches give bit-identical sums (no atomics)
     again = xic_cuda.extract_xic_cuda(*args, **kw)
-    again = again if with_mz else (again,)
+    again = again if kw.get("with_mz") else (again,)
     for g, a in zip(got, again):
         assert torch.equal(g, a)
+    return got, ref
+
+
+TILING = {
+    # name: (B, Q, W, with_mz, scan window); B * Q leaves the last block
+    # part full for every W here but 512
+    "w16_q1": (700, 1, 16, False, False),
+    "w64_q3_scan": (517, 3, 64, True, True),
+    "w64_q24": (101, 24, 64, True, False),
+    "w512_q24": (31, 24, 512, False, False),
+    "w1024_q3": (211, 3, 1024, True, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TILING))
+def test_kernel_tiling(card, case):
+    """The first 256 queries are masked, so at least one block holds masked
+    queries only; ``slab`` is the full length of the longest slab, so one
+    query reads exactly ``slab`` peaks and the others are not clipped."""
+    B, Q, W, with_mz, scan = TILING[case]
+    dia = _world(with_mobility=scan)
+    dev = dia.device_arrays(1, card)
+    slot, qmz, c0 = _queries(dia, dev, B, Q, W, 1, sorted(TILING).index(case))
+    slot.reshape(-1)[:256] = -1
+    cs = dia.cell_start.reshape(dia.n_slots * dia.n_bins, -1)
+    row = slot.astype(np.int64) * dia.n_bins + np.clip(
+        np.floor((qmz - np.float32(dia.bin_mz_min)) / np.float32(dia.coarse_bin_width)), 0, dia.n_bins - 1
+    ).astype(np.int64)
+    lo = np.clip(c0, 0, dia.n_cycles)[:, None]
+    hi = np.clip(c0.astype(np.int64) + W, 0, dia.n_cycles)[:, None]
+    length = np.where(slot >= 0, cs[row, hi] - cs[row, lo], 0)
+    slab = int(length.max())
+    assert slab > 0 and (length == slab).sum() >= 1
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(card)
+
+    kw = dict(
+        n_cycles=dev["n_cycles"], n_bins=dia.n_bins, bin_mz_min=dia.bin_mz_min,
+        bin_width=dia.coarse_bin_width, slab=slab, window_len=W, with_mz=with_mz,
+        mz_as_delta=with_mz,
+    )
+    if scan:
+        lo_s = np.random.default_rng(2).integers(0, 6, B).astype(np.int32)
+        kw.update(scan_lo=t(lo_s), scan_hi=t(lo_s + 2))
+    got, ref = _kernel_vs_plain((dev["peak_store"], dev["cell_start"], t(slot), t(qmz), 15.0, t(c0)), kw)
+    assert float(ref[0].sum()) > 0
+    for g in got:
+        assert float(g.reshape(-1, W)[:256].abs().sum()) == 0.0
+
+
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_kernel_edge_cases(card, case):
+    cfg, store = edge_world_config()
+    spectra, _, _ = make_synthetic_dia(SyntheticConfig(**cfg))
+    dia = DiaData.from_spectra(spectra, **store)
+    stride = 2 if case == "stride2_view" else 1
+    dev = dia.device_arrays(stride, card)
+    slot, qmz, c0, extra, check = edge_inputs(dia, dev, case)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(card)
+
+    def args_kw(**over):
+        kw = dict(
+            n_cycles=dev["n_cycles"], n_bins=dia.n_bins, bin_mz_min=dia.bin_mz_min,
+            bin_width=dia.coarse_bin_width, window_len=EDGE_W, with_mz=True, mz_as_delta=True,
+            cycle_stride=stride, **{**extra, **over},
+        )
+        if "scan_lo" in kw:
+            kw.update(scan_lo=t(kw["scan_lo"]), scan_hi=t(kw["scan_hi"]))
+        return (dev["peak_store"], dev["cell_start"], t(slot), t(qmz), 50.0, t(c0)), kw
+
+    _kernel_vs_plain(*args_kw())
+    check(lambda **over: xic_cuda.extract_xic_cuda(*args_kw(**over)[0], **args_kw(**over)[1])[0].cpu().numpy())
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_kernel_cells_past_2_16_cycles(card, stride):
+    """The cycle plane keeps each peak's cycle modulo 2**16: in a run of
+    70,000 cycles, windows before, across and after cycle 65,536 (and past
+    the last cycle) still put every peak into its own cell."""
+    n_cycles, pad = 70_000, 1024
+    rng = np.random.default_rng(4)
+    cyc = np.sort(rng.choice(n_cycles, 4000, replace=False))  # one (slot, bin) row
+    mz = np.concatenate([rng.uniform(500.0, 500.4, len(cyc)), np.full(pad, np.inf)]).astype(np.float32)
+    inten = np.concatenate([rng.uniform(1.0, 100.0, len(cyc)), np.zeros(pad)]).astype(np.float32)
+    cell_start = np.concatenate([[0], np.cumsum(np.bincount(cyc, minlength=n_cycles))]).astype(np.int32)
+    dia = DiaData(
+        cycle=np.full((1, 1, 1, 2), -1.0), rt_values=np.arange(n_cycles, dtype=np.float32),
+        cycle_rt=np.arange(n_cycles, dtype=np.float32), n_cycles=n_cycles, n_slots=1, has_ms1=True,
+        peak_mz=mz, peak_intensity=inten, peak_scanbin=np.zeros(len(mz), np.int32),
+        cell_start=cell_start.reshape(1, 1, -1), n_bins=1, bin_mz_min=0.0, coarse_bin_width=1000.0,
+    )
+    dev = dia.device_arrays(stride, card)
+    assert (cyc >= 1 << 16).any() and (dia.cycle_plane()[: len(cyc)] == cyc % (1 << 16)).all()
+    W = 64
+    c0 = np.array([100, 65_500, 65_536 - W // 2, 69_990, 131_000 // 2], np.int64) // stride
+    B = len(c0)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(card)
+
+    args = (
+        dev["peak_store"], dev["cell_start"], t(np.zeros((B, 2), np.int32)),
+        t(np.full((B, 2), 500.2, np.float32)), 1000.0, t(c0.astype(np.int32)),
+    )
+    kw = dict(
+        n_cycles=dev["n_cycles"], n_bins=1, bin_mz_min=0.0, bin_width=1000.0, window_len=W,
+        with_mz=True, mz_as_delta=True, cycle_stride=stride,
+    )
+    _, ref = _kernel_vs_plain(args, kw)
+    assert (ref[0][1:3].sum(dim=-1) > 0).all()  # the windows at 65,536 hold peaks
 
 
 def test_wrapper_raises_on_bad_cuda_inputs(card):
@@ -118,11 +239,14 @@ def test_wrapper_raises_on_bad_cuda_inputs(card):
     kw = dict(n_cycles=dev["n_cycles"], n_bins=dia.n_bins, bin_mz_min=dia.bin_mz_min,
               bin_width=dia.coarse_bin_width, window_len=16)
     with pytest.raises(TypeError, match="int32"):
-        xic_cuda.extract_xic_cuda(dev["peak_packed"], dev["cell_start"], slot.long(), qmz, 10.0, c0, **kw)
+        xic_cuda.extract_xic_cuda(dev["peak_store"], dev["cell_start"], slot.long(), qmz, 10.0, c0, **kw)
     with pytest.raises(ValueError, match="is on cpu"):
-        xic_cuda.extract_xic_cuda(dev["peak_packed"], dev["cell_start"], slot.cpu(), qmz, 10.0, c0, **kw)
+        xic_cuda.extract_xic_cuda(dev["peak_store"], dev["cell_start"], slot.cpu(), qmz, 10.0, c0, **kw)
     with pytest.raises(ValueError, match="contiguous"):
-        xic_cuda.extract_xic_cuda(dev["peak_packed"], dev["cell_start"], slot.t().contiguous().t(), qmz, 10.0, c0, **kw)
+        xic_cuda.extract_xic_cuda(dev["peak_store"], dev["cell_start"], slot.t().contiguous().t(), qmz, 10.0, c0, **kw)
+    wide_scan = dev["peak_store"]._replace(scanbin=dev["peak_store"].scanbin.int())
+    with pytest.raises(TypeError, match="store.scanbin"):
+        xic_cuda.extract_xic_cuda(wide_scan, dev["cell_start"], slot, qmz, 10.0, c0, **kw)
 
 
 def test_4d_scoring_launches_match_plain(card, monkeypatch):

@@ -83,7 +83,7 @@ def test_device_arrays_default_is_the_card():
         dia.device_arrays()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         dia.device_arrays(2)
-    assert dia.device_arrays(1, "cpu")["peak_packed"].device.type == "cpu"
+    assert dia.device_arrays(1, "cpu")["peak_store"].packed.device.type == "cpu"
 
 
 def test_tf32_is_off():

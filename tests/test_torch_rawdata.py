@@ -99,17 +99,26 @@ def test_device_arrays_equal(stores, stride):
     assert d["n_cycles"] == int(j["n_cycles"])
     np.testing.assert_array_equal(d["cell_start"].numpy(), j["cell_start"])
     np.testing.assert_array_equal(d["cycle_rt"].numpy(), j["cycle_rt"])
-    # the JAX store is [NR, 4, 128] lane rows; the port's is one row per peak
+    # the JAX store is [NR, 4, 128] lane rows of (m/z, intensity, cycle,
+    # scan bin); the port's is one (m/z, intensity) row per peak beside a
+    # cycle plane (mod 2**16) and a scan-bin plane
     jp = j["peak_packed"].transpose(0, 2, 1).reshape(-1, 4)
-    packed = d["peak_packed"].numpy()
-    assert packed.shape[0] == len(j["peak_mz"])
-    np.testing.assert_array_equal(packed, jp[: packed.shape[0]])
+    store = d["peak_store"]
+    packed = store.packed.numpy()
+    assert packed.shape == (len(j["peak_mz"]), 2)
+    np.testing.assert_array_equal(packed, jp[: packed.shape[0], :2])
+    np.testing.assert_array_equal(store.scanbin.numpy(), jp[: packed.shape[0], 3].astype(np.int32))
+    n_stored = ours.n_stored_peaks
+    np.testing.assert_array_equal(ours.peak_cycle(), jp[:n_stored, 2].astype(np.int32))
+    np.testing.assert_array_equal(store.cycle.numpy()[:n_stored], jp[:n_stored, 2].astype(np.uint16))
+    assert (jp[n_stored : packed.shape[0], 1] == 0).all()
     np.testing.assert_array_equal(d["peak_mz"].numpy(), j["peak_mz"])
     np.testing.assert_array_equal(d["peak_intensity"].numpy(), j["peak_intensity"])
     np.testing.assert_array_equal(d["peak_scanbin"].numpy(), j["peak_scanbin"])
-    assert d["peak_packed"].dtype == torch.float32 and d["peak_packed"].is_contiguous()
+    assert [t.dtype for t in store] == [torch.float32, torch.uint16, torch.int16]
+    assert all(t.is_contiguous() and t.shape[0] == packed.shape[0] for t in store)
     # the coarse view shares the fine view's peak store
-    assert d["peak_packed"] is ours.device_arrays(1, "cpu")["peak_packed"]
+    assert d["peak_store"] is ours.device_arrays(1, "cpu")["peak_store"]
 
 
 def test_convert_carries_the_jax_state(stores):

@@ -83,7 +83,7 @@ def run_both(jd, td, batch, static, cfg):
     )
     dev = td.device_arrays(1, "cpu")
     got = score_candidates_batch(
-        dev["peak_packed"], dev["cell_start"], dev["cycle_rt"],
+        dev["peak_store"], dev["cell_start"], dev["cycle_rt"],
         *(torch.from_numpy(a) for a in lib_args), cfg.quad_sigma, cfg.quad_delta_mu,
         *(torch.from_numpy(a) for a in geo_args),
         cfg.fragment_mz_tolerance, cfg.precursor_mz_tolerance, **static,

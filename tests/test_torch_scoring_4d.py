@@ -91,11 +91,11 @@ def run_both(world, compute_dtype):
     )
     dev = td.device_arrays(1, "cpu")
     got = score_candidates_batch(
-        dev["peak_packed"], dev["cell_start"], dev["cycle_rt"],
+        dev["peak_store"], dev["cell_start"], dev["cycle_rt"],
         *(torch.from_numpy(a) for a in lib_args), cfg.quad_sigma, cfg.quad_delta_mu,
         *(torch.from_numpy(geo[k]) for k in GEO),
         cfg.fragment_mz_tolerance, cfg.precursor_mz_tolerance,
-        peak_scanbin=dev["peak_scanbin"], **{k: torch.from_numpy(geo[k]) for k in SCAN_GEO},
+        **{k: torch.from_numpy(geo[k]) for k in SCAN_GEO},
         **static,
     )
     return got, ref

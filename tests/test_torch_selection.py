@@ -65,7 +65,7 @@ def test_select_candidates_batch_matches(world, stride, join):
     )
     keys = ("frag_slot", "frag_mz", "iso_slot", "iso_mz")
     got = select_candidates_batch(
-        dev["peak_packed"], dev["cell_start"],
+        dev["peak_store"], dev["cell_start"],
         *(torch.from_numpy(arrays[k]) for k in keys), torch.from_numpy(c0),
         torch.from_numpy(kernel), cfg.fragment_mz_tolerance, cfg.precursor_mz_tolerance,
         torch.from_numpy(arrays["n_valid_fragments"]), cycle_stride=stride, **static,

@@ -23,6 +23,7 @@ from alphadia_torch.ops.xic_cuda import extract_xic_cuda
 from alphadia_tpu.ops.xic import extract_xic as jax_extract_xic
 from alphadia_tpu.rawdata import DiaData as JaxDiaData
 from alphadia_tpu.testing.synthetic import SyntheticConfig, make_synthetic_dia
+from torch_xic_edges import EDGE_CASES, W as EDGE_W, edge_inputs, edge_world_config
 
 pytest_plugins = ("torch_port_plugin",)
 TOL_PPM = 50.0  # wide enough for random m/z to meet noise peaks
@@ -120,7 +121,7 @@ def test_plain_matches_jax_xla(world, case):
     )
     # on CPU tensors the kernel's wrapper runs the plain version
     via_wrapper = extract_xic_cuda(
-        tdev["peak_packed"], tdev["cell_start"], t(slot), t(qmz), TOL_PPM, t(c0),
+        tdev["peak_store"], tdev["cell_start"], t(slot), t(qmz), TOL_PPM, t(c0),
         cycle_stride=stride, **kw,
     )
     for r, g, v, tol in zip(planes(ref), planes(got), planes(via_wrapper), tolerances(with_mz, mz_as_delta)):
@@ -216,15 +217,58 @@ def test_c_scan_window_matches_xla(with_mz):
         scan_lo=scan_lo, scan_hi=scan_hi, **kw,
     )
     got = extract_xic_cuda(
-        tdev["peak_packed"], tdev["cell_start"], t(slot), t(qmz), 50.0, t(c0),
+        tdev["peak_store"], tdev["cell_start"], t(slot), t(qmz), 50.0, t(c0),
         scan_lo=t(scan_lo), scan_hi=t(scan_hi), **kw,
     )
     for r, g, tol in zip(planes(ref), planes(got), tolerances(with_mz, False)):
         np.testing.assert_allclose(n(g), n(r), **tol)
     full = extract_xic_cuda(
-        tdev["peak_packed"], tdev["cell_start"], t(slot), t(qmz), 50.0, t(c0), **kw
+        tdev["peak_store"], tdev["cell_start"], t(slot), t(qmz), 50.0, t(c0), **kw
     )
     assert 0 < float(planes(got)[0].sum()) < float(planes(full)[0].sum())
+
+
+@pytest.fixture(scope="module")
+def edge_world():
+    cfg, store = edge_world_config()
+    spectra, _, _ = make_synthetic_dia(SyntheticConfig(**cfg))
+    jd = JaxDiaData.from_spectra(spectra, use_native=False, **store)
+    return jd, diadata_from_jax(jd)
+
+
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_edge_cases_match_jax(edge_world, case):
+    """The edges the kernel's cell-offset design depends on (a slab clipped
+    inside a cell, a window running past the store's end, empty cells
+    between full ones, the stride-2 view, the exclusive scan edge): the
+    wrapper's plain version against JAX's XLA path, with the m/z delta
+    plane; and each edge shows in the output."""
+    jd, td = edge_world
+    stride = 2 if case == "stride2_view" else 1
+    jdev, tdev = jd.device_arrays(stride), td.device_arrays(stride, "cpu")
+    slot, qmz, c0, extra, check = edge_inputs(td, tdev, case)
+    base = xic_kw(td, tdev, EDGE_W, 256, with_mz=True, mz_as_delta=True)
+
+    def run(port, **over):
+        kw = {**base, **extra, **over}
+        scan = {k: kw.pop(k) for k in ("scan_lo", "scan_hi") if k in kw}
+        if port:
+            if scan:
+                scan = {k: t(v) for k, v in scan.items()}
+            return extract_xic_cuda(
+                tdev["peak_store"], tdev["cell_start"], t(slot), t(qmz), TOL_PPM, t(c0),
+                cycle_stride=stride, **kw, **scan,
+            )
+        if scan:
+            scan = dict(peak_scanbin=jdev["peak_scanbin"], **scan)
+        return jax_extract_xic(
+            jdev["peak_mz"], jdev["peak_intensity"], jdev["cell_start"], slot, qmz,
+            np.float32(TOL_PPM), c0, **kw, **scan,
+        )
+
+    for r, g, tol in zip(run(False), run(True), tolerances(True, True)):
+        np.testing.assert_allclose(n(g), n(r), **tol)
+    check(lambda **over: n(run(True, **over)[0]))
 
 
 def test_wrapper_rejects_bad_inputs(world):
@@ -236,8 +280,9 @@ def test_wrapper_rejects_bad_inputs(world):
     qmz = torch.full((2, 3), 500.0)
     c0 = torch.zeros(2, dtype=torch.int32)
     with pytest.raises(ValueError, match="power of two"):
-        extract_xic_cuda(dev["peak_packed"], dev["cell_start"], slot, qmz, 10.0, c0, cycle_stride=3, **kw)
+        extract_xic_cuda(dev["peak_store"], dev["cell_start"], slot, qmz, 10.0, c0, cycle_stride=3, **kw)
     with pytest.raises(ValueError, match="go together"):
-        extract_xic_cuda(dev["peak_packed"], dev["cell_start"], slot, qmz, 10.0, c0, scan_lo=c0, **kw)
+        extract_xic_cuda(dev["peak_store"], dev["cell_start"], slot, qmz, 10.0, c0, scan_lo=c0, **kw)
     with pytest.raises(ValueError, match="unsupported device"):
-        extract_xic_cuda(dev["peak_packed"].to("meta"), dev["cell_start"], slot, qmz, 10.0, c0, **kw)
+        meta = dev["peak_store"]._replace(packed=dev["peak_store"].packed.to("meta"))
+        extract_xic_cuda(meta, dev["cell_start"], slot, qmz, 10.0, c0, **kw)

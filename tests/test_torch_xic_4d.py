@@ -67,7 +67,7 @@ def peak_queries(dia, B, Q, W, stride, n_cycles, seed):
     row = np.searchsorted(dia.cell_start[:, :, 0].reshape(-1), pick, side="right") - 1
     slot = (row // dia.n_bins).astype(np.int32)
     qmz = dia.peak_mz[pick].astype(np.float32)
-    cyc = dia.packed_store()[pick[:, 0], 2].astype(np.int64) // stride
+    cyc = dia.peak_cycle()[pick[:, 0]].astype(np.int64) // stride
     c0 = (cyc - rng.integers(0, W, B)).astype(np.int32)
     slot[0, :2] = -1  # masked queries
     c0[1] = -5  # starts before cycle 0
@@ -80,7 +80,7 @@ def direct_4d(td, dev, slot, qmz, c0, W, slab, stride, with_mz):
     ``slab`` peaks from its window's first cell, and every peak inside the
     ppm window adds to the (scan bin, cycle // stride) cell it belongs to,
     summed in float64."""
-    packed = td.packed_store()
+    packed, cyc, scanbin = td.packed_store(), td.peak_cycle(), td.scanbin_plane()
     cs = dev["cell_start"].numpy()
     n_cyc = dev["n_cycles"]
     B, Q = slot.shape
@@ -100,9 +100,9 @@ def direct_4d(td, dev, slot, qmz, c0, W, slab, stride, with_mz):
             r0 = row[np.clip(c0[b], 0, n_cyc)]
             n = int(np.clip(row[np.clip(c0[b] + W, 0, n_cyc)] - r0, 0, slab))
             p = packed[r0 : r0 + n]
-            w = p[:, 2].astype(np.int64) // stride - c0[b]
+            w = cyc[r0 : r0 + n].astype(np.int64) // stride - c0[b]
             ok = (p[:, 0] >= lo) & (p[:, 0] <= hi) & (w >= 0) & (w < W)
-            at = (p[ok, 3].astype(np.int64), w[ok])
+            at = (scanbin[r0 : r0 + n][ok].astype(np.int64), w[ok])
             np.add.at(inten[b, q], at, p[ok, 1].astype(np.float64))
             np.add.at(dmz[b, q], at, (p[ok, 1] * (p[ok, 0] - qc)).astype(np.float64))
     dmz = np.where(inten > 0, dmz / np.maximum(inten, 1e-12), 0.0)

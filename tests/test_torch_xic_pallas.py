@@ -39,7 +39,7 @@ def peak_queries(dia, B, Q, W, seed):
     row = np.searchsorted(dia.cell_start[:, :, 0].reshape(-1), pick, side="right") - 1
     slot = (row // dia.n_bins).astype(np.int32)
     qmz = (dia.peak_mz[pick] * (1 + rng.normal(0, 3e-6, (B, Q)))).astype(np.float32)
-    cyc = dia.packed_store()[pick[:, 0], 2].astype(np.int64)
+    cyc = dia.peak_cycle()[pick[:, 0]].astype(np.int64)
     c0 = (cyc - rng.integers(0, W, B)).astype(np.int32)
     slot[0, -2:] = -1
     qmz[1, 0] = 5.0
@@ -64,7 +64,7 @@ def compare(jd, td, *, B, Q, W, slab, with_mz, stride=1, seed=0, scan=None):
         interpret=True, **kw, **scan_np,
     )
     got = extract_xic_cuda(
-        tdev["peak_packed"], tdev["cell_start"], t(slot), t(qmz), 20.0, t(c0),
+        tdev["peak_store"], tdev["cell_start"], t(slot), t(qmz), 20.0, t(c0),
         **kw, **{k: t(v) for k, v in scan_np.items()},
     )
     ref = ref if with_mz else (ref,)
@@ -93,7 +93,7 @@ def test_a_intensity_with_slab_overflow(world):
     tdev = td.device_arrays(1, "cpu")
     slot, qmz, c0 = peak_queries(td, 6, 9, 24, 1)
     long = extract_xic_cuda(
-        tdev["peak_packed"], tdev["cell_start"], t(slot), t(qmz), 20.0, t(c0),
+        tdev["peak_store"], tdev["cell_start"], t(slot), t(qmz), 20.0, t(c0),
         n_cycles=tdev["n_cycles"], n_bins=td.n_bins, bin_mz_min=td.bin_mz_min,
         bin_width=td.coarse_bin_width, slab=4096, window_len=24,
     )

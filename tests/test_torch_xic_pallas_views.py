@@ -28,7 +28,7 @@ def test_d_coarse_view_stride2():
     slot, qmz, c0 = peak_queries(td, 6, 9, 48, 3)
     c0 = (c0 // 2).astype(np.int32)
     fine = extract_xic_cuda(
-        fine_dev["peak_packed"], fine_dev["cell_start"], t(slot), t(qmz), 20.0, t(2 * c0),
+        fine_dev["peak_store"], fine_dev["cell_start"], t(slot), t(qmz), 20.0, t(2 * c0),
         n_cycles=fine_dev["n_cycles"], n_bins=td.n_bins, bin_mz_min=td.bin_mz_min,
         bin_width=td.coarse_bin_width, slab=256, window_len=48,
     )
