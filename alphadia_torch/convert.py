@@ -1,8 +1,9 @@
 """Carry state across from the JAX package.
 
-The extraction path has no trained weights: what carries across is the raw
-file's state and the configs. These functions read attributes of the
-objects they are given and import nothing of the JAX package.
+What carries across: the raw file's state, the configs, and the FDR
+classifier's weights (flax variables as numpy arrays, the format of the
+packaged ``constants/classifier/*.pkl``). These functions read attributes
+of the objects they are given and import nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -10,6 +11,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from alphadia_torch.rawdata.diadata import DiaData
 from alphadia_torch.search.scoring import ScoringConfig
@@ -56,3 +58,37 @@ def frame_from_pandas(df) -> dict:
     """Column dict of a pandas frame (read through ``columns``/``to_numpy``)."""
     return {str(c): df[c].to_numpy() for c in df.columns}
 
+
+
+def classifier_from_jax(variables: dict) -> dict:
+    """The state dict of the port's ``FeedForwardNN`` from flax variables:
+    ``params/Dense_k/kernel`` [in, out] -> ``dense.k.weight`` [out, in],
+    the biases, BatchNorm's scale and bias, and its running mean and var."""
+    params, stats = variables["params"], variables["batch_stats"]["BatchNorm_0"]
+    out = {
+        "norm.scale": params["BatchNorm_0"]["scale"],
+        "norm.bias": params["BatchNorm_0"]["bias"],
+        "norm.mean": stats["mean"],
+        "norm.var": stats["var"],
+    }
+    k = 0
+    while f"Dense_{k}" in params:
+        out[f"dense.{k}.weight"] = np.asarray(params[f"Dense_{k}"]["kernel"]).T
+        out[f"dense.{k}.bias"] = params[f"Dense_{k}"]["bias"]
+        k += 1
+    return {name: torch.from_numpy(np.array(v, dtype=np.float32)) for name, v in out.items()}
+
+
+def classifier_to_jax(state_dict: dict) -> dict:
+    """Flax variables (numpy float32) from the port's ``FeedForwardNN``
+    state dict: the inverse of :func:`classifier_from_jax`."""
+
+    def a(name):
+        return state_dict[name].detach().cpu().numpy().astype(np.float32)
+
+    params = {"BatchNorm_0": {"scale": a("norm.scale"), "bias": a("norm.bias")}}
+    k = 0
+    while f"dense.{k}.weight" in state_dict:
+        params[f"Dense_{k}"] = {"kernel": np.ascontiguousarray(a(f"dense.{k}.weight").T), "bias": a(f"dense.{k}.bias")}
+        k += 1
+    return {"params": params, "batch_stats": {"BatchNorm_0": {"mean": a("norm.mean"), "var": a("norm.var")}}}

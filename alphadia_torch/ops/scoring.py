@@ -19,7 +19,12 @@ Feature index map (order of ``search/scoring.FEATURE_COLUMNS``):
 44 mean_overlapping_intensity, 45 mean_overlapping_mass_error.
 
 Profiles are extracted re-centred: the XIC window starts at
-``frame_center - W//2`` so the apex sits at the static index W//2. With
+``frame_center - W//2`` so the apex sits at the static index W//2. Each
+XIC is read from the candidate's first cycle and then placed in that
+window: a query reads at most ``slab`` peaks from where its read starts, so
+reading from the window start would let the bucket W decide which peaks a
+full slab keeps (the JAX package reads from the window start: there the
+features of a candidate whose slab overflows depend on W). With
 ``compute_dtype="bfloat16"`` the dense intensity chains run in bfloat16;
 all m/z-delta and mass-error math stays float32.
 
@@ -72,13 +77,24 @@ def round_transport(features, frag_out):
     features f32 / bf16 / f16 by class (f16 clipped to its range); fragment
     mass_error (clipped to +-2000 ppm) and correlation f16; height,
     intensity and obs_intensity bf16; scan_com f32."""
-    F = features.shape[1]
-    f32_idx = [i for i in _F32_FEATURES if i < F]
-    bf16_idx = [i for i in _BF16_FEATURES if i < F]
-    f16_idx = [i for i in range(F) if i not in set(f32_idx) | set(bf16_idx)]
-    out = features.clone()
-    out[:, bf16_idx] = _round(features[:, bf16_idx], torch.bfloat16)
-    out[:, f16_idx] = _round(features[:, f16_idx].clamp(-65504.0, 65504.0), torch.float16)
+    # each column's class as a mask made on the device: indexing with a
+    # list of columns would copy it to the card and wait for the stream
+    cols = torch.arange(features.shape[1], device=features.device)
+    is_f32 = torch.zeros_like(cols, dtype=torch.bool)
+    is_bf16 = torch.zeros_like(cols, dtype=torch.bool)
+    for i in _F32_FEATURES:
+        is_f32 |= cols == i
+    for i in _BF16_FEATURES:
+        is_bf16 |= cols == i
+    out = torch.where(
+        is_f32,
+        features,
+        torch.where(
+            is_bf16,
+            _round(features, torch.bfloat16),
+            _round(features.clamp(-65504.0, 65504.0), torch.float16),
+        ),
+    )
     fo = dict(frag_out)
     fo["mass_error"] = _round(frag_out["mass_error"].clamp(-2000.0, 2000.0), torch.float16)
     fo["correlation"] = _round(frag_out["correlation"], torch.float16)
@@ -165,9 +181,16 @@ def score_candidates_batch(
     # ---- dense fragments [B, KF, O2, W] -------------------------------
     fslot = torch.where(frag_valid[:, :, None], ms2_slot[:, None, :], -1).to(torch.int32)
     fmzq = frag_mz[:, :, None].expand(B, KF, O2)
-    d_frag_int, d_frag_dmz = extract_xic_cuda(
-        peak_store, cell_start, fslot.reshape(B, KF * O2).contiguous(),
-        fmzq.reshape(B, KF * O2).contiguous(), fragment_tol_ppm, cycle_start, **xic_kw,
+    # a query reads at most `slab` peaks from the start of its window: the
+    # XICs are read from the candidate's first cycle and then placed in the
+    # window, so that the peaks a slab keeps do not depend on W
+    shift = frame_start - cycle_start
+    d_frag_int, d_frag_dmz = (
+        _to_window(x, shift)
+        for x in extract_xic_cuda(
+            peak_store, cell_start, fslot.reshape(B, KF * O2).contiguous(),
+            fmzq.reshape(B, KF * O2).contiguous(), fragment_tol_ppm, frame_start, **xic_kw,
+        )
     )
     d_frag_int = d_frag_int.reshape(B, KF, O2, W) * wmask[:, None, None, :]
     d_frag_dmz = d_frag_dmz.reshape(B, KF, O2, W) * wmask[:, None, None, :]
@@ -180,9 +203,12 @@ def score_candidates_batch(
     # ---- dense precursors, observations collapsed [B, KI, W] ----------
     islot = ms1_slot[:, None, :].expand(B, KI, O1)
     imzq = iso_mz[:, :, None].expand(B, KI, O1)
-    d_prec_int_o, d_prec_dmz_o = extract_xic_cuda(
-        peak_store, cell_start, islot.reshape(B, KI * O1).contiguous(),
-        imzq.reshape(B, KI * O1).contiguous(), precursor_tol_ppm, cycle_start, **xic_kw,
+    d_prec_int_o, d_prec_dmz_o = (
+        _to_window(x, shift)
+        for x in extract_xic_cuda(
+            peak_store, cell_start, islot.reshape(B, KI * O1).contiguous(),
+            imzq.reshape(B, KI * O1).contiguous(), precursor_tol_ppm, frame_start, **xic_kw,
+        )
     )
     d_prec_int_o = d_prec_int_o.reshape(B, KI, O1, W) * wmask[:, None, None, :]
     d_prec_dmz_o = d_prec_dmz_o.reshape(B, KI, O1, W) * wmask[:, None, None, :]
@@ -469,6 +495,16 @@ def score_candidates_batch(
     return features, n_valid >= 2, fragment_out
 
 
+def _to_window(x, shift):
+    """Planes [B, ..., W] read from cycle ``start + shift`` placed at
+    ``start``: cell w takes the read's cell w - shift, 0 before it."""
+    W = x.shape[-1]
+    idx = torch.arange(W, device=x.device)[None, :] - shift.long()[:, None]  # [B, W]
+    idx = idx.reshape(idx.shape[0], *([1] * (x.dim() - 2)), W)
+    out = torch.gather(x, -1, idx.clamp(min=0).expand(x.shape))
+    return torch.where(idx >= 0, out, 0.0)
+
+
 def _precursor_cells_4d(
     peak_store, cell_start, islot, imzq, iso_mz, precursor_tol_ppm,
     cycle_start, prec_ctr, wmask, scan_lo, scan_hi, *, n_scan_bins, window_len, **xic_kw,
@@ -480,10 +516,15 @@ def _precursor_cells_4d(
     S, W = n_scan_bins, window_len
     dev = iso_mz.device
     f32 = torch.float32
-    i4_int_o, i4_dmz_o = extract_xic_4d(
-        peak_store.packed[:, 0], peak_store.packed[:, 1], peak_store.scanbin, cell_start,
-        islot.reshape(B, KI * O1), imzq.reshape(B, KI * O1), precursor_tol_ppm,
-        cycle_start, n_scan_bins=S, window_len=W, with_mz=True, **xic_kw,
+    # read from the candidate's first cycle, as the XICs of the batch
+    shift = prec_ctr.to(torch.int32) - 1
+    i4_int_o, i4_dmz_o = (
+        _to_window(x, shift)
+        for x in extract_xic_4d(
+            peak_store.packed[:, 0], peak_store.packed[:, 1], peak_store.scanbin, cell_start,
+            islot.reshape(B, KI * O1), imzq.reshape(B, KI * O1), precursor_tol_ppm,
+            cycle_start + shift, n_scan_bins=S, window_len=W, with_mz=True, **xic_kw,
+        )
     )
     i4_int_o = i4_int_o.reshape(B, KI, O1, S, W)
     i4_dmz_o = i4_dmz_o.reshape(B, KI, O1, S, W)

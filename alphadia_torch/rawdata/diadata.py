@@ -79,9 +79,14 @@ class DiaData:
         spectra: SpectrumData,
         coarse_bin_width: float = 1.0,
         n_scan_bins: int = 8,
+        mobility_range: tuple[float, float] | None = None,
     ) -> "DiaData":
         """Cycle-align and tensorize a raw file: drop non-DIA MS1, detect the
-        cycle, truncate to whole cycles, build the slab layout."""
+        cycle, truncate to whole cycles, build the slab layout.
+
+        Scan bins split ``mobility_range`` (default: the spectra's own
+        mobility range); a part of a run binned with the whole run's range
+        has the whole run's scan bins."""
         has_ms1 = True
         if not spectra.is_ms1_dia():
             spectra = spectra.drop_ms1()
@@ -101,8 +106,9 @@ class DiaData:
         quad_max = float(cycle[0, quad_mask, 0, 1].max()) if quad_mask.any() else 0.0
 
         if spectra.has_mobility:
-            mob_min = float(spectra.mobility.min())
-            mob_max = float(spectra.mobility.max())
+            if mobility_range is None:
+                mobility_range = (float(spectra.mobility.min()), float(spectra.mobility.max()))
+            mob_min, mob_max = (float(v) for v in mobility_range)
             S = max(2, int(n_scan_bins))
             centers = mob_min + (np.arange(S, dtype=np.float32) + 0.5) * (
                 (mob_max - mob_min) / S

@@ -23,6 +23,41 @@ def kernel_available() -> bool:
     return True
 
 
+def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Upload a host array without waiting: on the card through a pinned
+    buffer and a ``non_blocking`` copy (a copy from pageable memory would
+    wait for the stream); on the CPU a plain tensor."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def to_host_async(tensors: dict) -> tuple[dict, torch.cuda.Event | None]:
+    """Start the copy of each tensor to the host without waiting for it: on
+    the card into pinned buffers with ``non_blocking`` copies, then an event
+    on the current stream; CPU tensors are returned as they are. Read the
+    buffers through :func:`host_arrays` only."""
+    if next(iter(tensors.values())).device.type != "cuda":
+        return tensors, None
+    out = {}
+    for k, t in tensors.items():
+        out[k] = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        out[k].copy_(t, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record()
+    return out, event
+
+
+def host_arrays(pending: tuple[dict, torch.cuda.Event | None]) -> dict:
+    """Wait for the copies that :func:`to_host_async` started (only those)
+    and return them as numpy arrays."""
+    tensors, event = pending
+    if event is not None:
+        event.synchronize()
+    return {k: v.numpy() for k, v in tensors.items()}
+
+
 def first_k_true(mask: np.ndarray, k: int) -> np.ndarray:
     """Indices of the first k true columns per row; -1 where fewer."""
     order = np.argsort(~mask, axis=1, kind="stable")[:, :k]

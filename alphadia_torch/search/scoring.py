@@ -8,6 +8,10 @@ named features, precursor metadata, derived columns) and the per-fragment
 column dict. On ion-mobility data each candidate also carries its scan
 window, the batch is capped at 4096, and the scan centre of mass and the
 window's width become ``mobility_observed`` and ``base_width_mobility``.
+
+Each chunk of candidates is enqueued with its copies to pinned host
+buffers (``_dispatch_chunk``) before any is read back (``_harvest``), so
+the host never waits for one chunk before enqueuing the next.
 """
 
 from __future__ import annotations
@@ -16,12 +20,17 @@ import logging
 from dataclasses import dataclass
 
 import numpy as np
-import torch
 
 from alphadia_torch.constants.settings import MASS_NEUTRON_AVG
 from alphadia_torch.ops.scoring import round_transport, score_candidates_batch
 from alphadia_torch.rawdata.diadata import DiaData
-from alphadia_torch.search.common import assign_observation_slots, top_k_fragment_order
+from alphadia_torch.search.common import (
+    assign_observation_slots,
+    host_arrays,
+    to_device,
+    to_host_async,
+    top_k_fragment_order,
+)
 from alphadia_torch.utils.device import batch_schedule, bucket_window, resolve_device
 
 logger = logging.getLogger(__name__)
@@ -55,6 +64,8 @@ LIB_KEYS = (
 )
 # the JAX driver ships these library intensities as float16 when they fit
 _F16_KEYS = ("frag_intensity", "iso_intensity")
+# per-fragment outputs copied back to the host
+_FRAG_KEEP = ("mass_error", "height", "intensity", "correlation", "valid", "obs_intensity", "scan_com")
 
 # precursor columns carried into the PSM table when present
 PRECURSOR_CARRY_COLUMNS = [
@@ -70,6 +81,18 @@ FRAGMENT_COLUMNS = [
     "intensity", "mass_error", "correlation", "position", "number", "type",
     "charge", "loss_type",
 ]
+
+
+def window_bucket(geo: dict, a: int, b: int) -> int:
+    """Scoring window bucket W of candidates [a, b): the widest extent on
+    either side of a centre, as ``2 * half + 1`` cycles, at least 16."""
+    if b <= a:
+        return 16
+    half = np.maximum(
+        geo["frame_center"][a:b] - geo["frame_start"][a:b],
+        geo["frame_stop"][a:b] - geo["frame_center"][a:b],
+    )
+    return bucket_window(max(2 * int(half.max()) + 1, 16))
 
 
 @dataclass
@@ -126,6 +149,7 @@ class CandidateScoring:
         self.fragment_mz_column = fragment_mz_column
         self.device = resolve_device(device)
         self._lib_arrays: dict | None = None
+        self._row_order: tuple | None = None
 
     def _library_arrays(self) -> dict:
         """Per-precursor scoring inputs, built once over the library rows."""
@@ -192,24 +216,39 @@ class CandidateScoring:
         self._lib_arrays = out
         return out
 
-    def _upload_library(self, lib: dict) -> dict:
-        out = {}
+    def _batch_cap(self) -> int:
+        """Scoring batch cap: 4D scan-profile extraction is S times heavier."""
+        dia = self.dia
+        if dia.has_mobility and dia.n_scan_bins > 1:
+            return min(self.config.batch_size, 4096)
+        return self.config.batch_size
+
+    def _upload_lib(self) -> tuple[dict, dict]:
+        """Upload the per-precursor library arrays once, without waiting.
+        Returns ``(lib_host, lib_dev)``."""
+        lib = self._library_arrays()
+        lib_dev = {}
         for k in LIB_KEYS:
             a = lib[k]
             if k in _F16_KEYS and (not a.size or max(-float(a.min()), float(a.max())) <= 60000.0):
                 a = a.astype(np.float16).astype(np.float32)
-            out[k] = torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-        return out
+            lib_dev[k] = to_device(a, self.device)
+        return lib, lib_dev
+
+    def _row_of(self, precursor_idx: np.ndarray) -> np.ndarray:
+        """Library row of each precursor index."""
+        if self._row_order is None:
+            pidx = self.precursor["precursor_idx"].astype(np.int64)
+            self._row_order = pidx, np.argsort(pidx, kind="stable")
+        pidx, order = self._row_order
+        return order[np.searchsorted(pidx, precursor_idx.astype(np.int64), sorter=order)]
 
     def _candidate_geometry(self, cand: dict) -> dict:
         """Per-candidate precursor row and elution window geometry."""
-        pidx = self.precursor["precursor_idx"].astype(np.int64)
-        order = np.argsort(pidx, kind="stable")
-        rows = order[np.searchsorted(pidx, cand["precursor_idx"].astype(np.int64), sorter=order)]
+        rows = self._row_of(cand["precursor_idx"])
         frame_center = cand["frame_center"].astype(np.int32)
         frame_start = cand["frame_start"].astype(np.int32)
         frame_stop = cand["frame_stop"].astype(np.int32)
-        half = np.maximum(frame_center - frame_start, frame_stop - frame_center)
         # the candidate's scan window; the one dummy scan [0, 1) on 3D data
         dia = self.dia
         n = len(frame_center)
@@ -224,7 +263,7 @@ class CandidateScoring:
             scan_lo = np.zeros(n, np.int32)
             scan_hi = np.ones(n, np.int32)
             mobility_width = np.zeros(n, np.float32)
-        return {
+        geo = {
             "rows": rows.astype(np.int64),
             "frame_center": frame_center,
             "frame_start": frame_start,
@@ -232,29 +271,37 @@ class CandidateScoring:
             "scan_lo": scan_lo,
             "scan_hi": scan_hi,
             "mobility_width": mobility_width,
-            "window_len": bucket_window(max(2 * int(half.max()) + 1, 16)),
         }
+        geo["window_len"] = window_bucket(geo, 0, n)
+        return geo
 
-    def __call__(self, candidates: dict) -> tuple[dict, dict]:
-        """Score all candidates. Returns (psm, fragment) column dicts."""
+    @staticmethod
+    def _geo_chunk(geo: dict, b0: int, b1: int) -> dict:
+        """The geometry of candidates [b0, b1)."""
+        return {k: geo[k][b0:b1] for k in GEO_KEYS}
+
+    def _dispatch_chunk(self, dev: dict, lib_dev: dict, chunk: dict, W: int):
+        """Enqueue the scoring of one geometry chunk with window bucket ``W``
+        (feature values do not depend on it) and the copies of its outputs
+        to the host. Returns the pending copies for :meth:`_harvest`."""
         cfg = self.config
         dia = self.dia
-        n = len(candidates["precursor_idx"])
-        if n == 0:
-            return empty_psms(), empty_fragments()
-        lib = self._library_arrays()
-        geo = self._candidate_geometry(candidates)
-        W = geo["window_len"]
-        dev = dia.device_arrays(1, self.device)
-        lib_dev = self._upload_library(lib)
-        geo_dev = {k: torch.from_numpy(geo[k]).to(self.device) for k in GEO_KEYS}
-        S = dia.n_scan_bins if dia.has_mobility else 1
-        static_kw = dict(
+        gd = {k: to_device(v, self.device) for k, v in chunk.items()}
+        g = {k: v.index_select(0, gd["rows"]) for k, v in lib_dev.items()}
+        features, valid, frag_out = score_candidates_batch(
+            dev["peak_store"], dev["cell_start"], dev["cycle_rt"],
+            g["frag_mz"], g["frag_valid"], g["frag_intensity"], g["frag_type"],
+            g["frag_position"], g["iso_mz"], g["iso_intensity"],
+            g["ms2_slot"], g["ms1_slot"], g["win_lo"], g["win_hi"],
+            cfg.quad_sigma, cfg.quad_delta_mu,
+            gd["frame_center"], gd["frame_start"], gd["frame_stop"],
+            cfg.fragment_mz_tolerance, cfg.precursor_mz_tolerance,
+            scan_lo=gd["scan_lo"], scan_hi=gd["scan_hi"], mobility_width=gd["mobility_width"],
             n_cycles=dev["n_cycles"],
             n_bins=dia.n_bins,
             bin_mz_min=dia.bin_mz_min,
             bin_width=dia.coarse_bin_width,
-            n_scan_bins=S,
+            n_scan_bins=dia.n_scan_bins if dia.has_mobility else 1,
             slab=cfg.gather_slab,
             window_len=W,
             quant_window=cfg.quant_window,
@@ -262,39 +309,17 @@ class CandidateScoring:
             experimental_xic=cfg.experimental_xic,
             compute_dtype=cfg.compute_dtype,
         )
+        features, frag_out = round_transport(features, frag_out)
+        return to_host_async({"features": features, "psm_valid": valid, **{k: frag_out[k] for k in _FRAG_KEEP}})
 
-        # 4D scan-profile extraction is S times heavier: cap the batch
-        cap = min(cfg.batch_size, 4096) if S > 1 else cfg.batch_size
-        parts = []
-        for b0, bsz in batch_schedule(n, cap):
-            b1 = min(b0 + bsz, n)
-            gd = {k: v[b0:b1] for k, v in geo_dev.items()}
-            g = {k: v.index_select(0, gd["rows"]) for k, v in lib_dev.items()}
-            features, valid, frag_out = score_candidates_batch(
-                dev["peak_store"], dev["cell_start"], dev["cycle_rt"],
-                g["frag_mz"], g["frag_valid"], g["frag_intensity"], g["frag_type"],
-                g["frag_position"], g["iso_mz"], g["iso_intensity"],
-                g["ms2_slot"], g["ms1_slot"], g["win_lo"], g["win_hi"],
-                cfg.quad_sigma, cfg.quad_delta_mu,
-                gd["frame_center"], gd["frame_start"], gd["frame_stop"],
-                cfg.fragment_mz_tolerance, cfg.precursor_mz_tolerance,
-                scan_lo=gd["scan_lo"],
-                scan_hi=gd["scan_hi"], mobility_width=gd["mobility_width"],
-                **static_kw,
-            )
-            features, frag_out = round_transport(features, frag_out)
-            keep = ("mass_error", "height", "intensity", "correlation", "valid", "obs_intensity", "scan_com")
-            parts.append(
-                (
-                    features.cpu().numpy(),
-                    valid.cpu().numpy(),
-                    {k: frag_out[k].cpu().numpy() for k in keep},
-                )
-            )
-
-        features = np.concatenate([p[0] for p in parts])
-        valid = np.concatenate([p[1] for p in parts])
-        frag_out = {k: np.concatenate([p[2][k] for p in parts]) for k in parts[0][2]}
+    def _harvest(self, pending: list, cand: dict, lib: dict, geo: dict) -> tuple[dict, dict]:
+        """Read the chunks' outputs in dispatch order, each once its own
+        copies have landed, and assemble the (psm, fragment) column dicts.
+        ``pending`` covers ``cand`` and ``geo`` in order."""
+        parts = [host_arrays(p) for p in pending]
+        features = np.concatenate([p["features"] for p in parts])
+        valid = np.concatenate([p["psm_valid"] for p in parts])
+        frag_out = {k: np.concatenate([p[k] for p in parts]) for k in _FRAG_KEEP}
         # observed fragment m/z from the rounded mass error and the queried m/z
         fmz = lib["frag_mz"][geo["rows"]]
         frag_out["mz_observed"] = np.where(
@@ -302,7 +327,22 @@ class CandidateScoring:
             fmz * (1.0 + frag_out["mass_error"] * 1e-6),
             0.0,
         ).astype(np.float32)
-        psm, fragments = self._assemble(candidates, lib, geo, features, valid, frag_out)
+        return self._assemble(cand, lib, geo, features, valid, frag_out)
+
+    def __call__(self, candidates: dict) -> tuple[dict, dict]:
+        """Score all candidates. Returns (psm, fragment) column dicts."""
+        n = len(candidates["precursor_idx"])
+        if n == 0:
+            return empty_psms(), empty_fragments()
+        lib, lib_dev = self._upload_lib()
+        geo = self._candidate_geometry(candidates)
+        W = geo["window_len"]
+        dev = self.dia.device_arrays(1, self.device)
+        pending = [
+            self._dispatch_chunk(dev, lib_dev, self._geo_chunk(geo, b0, min(b0 + bsz, n)), W)
+            for b0, bsz in batch_schedule(n, self._batch_cap())
+        ]
+        psm, fragments = self._harvest(pending, candidates, lib, geo)
         logger.info(
             "Candidate scoring: %d/%d candidates scored (window %d cycles)",
             len(psm["precursor_idx"]), n, W,

@@ -5,6 +5,10 @@ once, runs ``ops/selection.select_candidates_batch`` (or, on ion-mobility
 data, ``select_candidates_batch_4d``) over a power-of-two batch schedule on
 the device, and decodes the candidates into a column dict in absolute
 (fine) cycle coordinates and, on 4D data, scan-bin coordinates.
+
+``_submit`` enqueues every batch without waiting for the device;
+``_harvest_iter`` decodes the batches in order, each once its own copies
+to the host have landed.
 """
 
 from __future__ import annotations
@@ -13,13 +17,18 @@ import logging
 from dataclasses import dataclass
 
 import numpy as np
-import torch
 
 from alphadia_torch.constants.settings import MASS_NEUTRON_AVG
 from alphadia_torch.ops.selection import select_candidates_batch, select_candidates_batch_4d
 from alphadia_torch.ops.smooth import gaussian_kernel_1d, rt_kernel_sigma
 from alphadia_torch.rawdata.diadata import DiaData
-from alphadia_torch.search.common import assign_observation_slots, top_k_fragment_order
+from alphadia_torch.search.common import (
+    assign_observation_slots,
+    host_arrays,
+    to_device,
+    to_host_async,
+    top_k_fragment_order,
+)
 from alphadia_torch.utils.device import batch_schedule, bucket_window, resolve_device
 
 logger = logging.getLogger(__name__)
@@ -167,11 +176,29 @@ class CandidateSelection:
 
     def __call__(self) -> dict:
         """Select candidates for every precursor; returns a column dict."""
+        state = self._submit()
+        if state is None:
+            return empty_candidates()
+        frames = [frame for _, frame in self._harvest_iter(state)]
+        out = {k: np.concatenate([f[k] for f in frames]) for k in CANDIDATE_COLUMNS}
+        logger.info(
+            "Candidate selection: %d candidates for %d precursors (window %d cycles%s)",
+            len(out["precursor_idx"]), state["n"], state["window_len"],
+            f", {self.dia.n_scan_bins} scan bins" if state["use_4d"] else "",
+        )
+        return out
+
+    def _submit(self) -> dict | None:
+        """Prepare the query arrays, upload them and enqueue every batch;
+        each batch's outputs go to pinned host buffers by asynchronous
+        copies followed by an event. Nothing here waits for the device.
+        Returns the state that :meth:`_harvest_iter` decodes, or None for
+        an empty library."""
         cfg = self.config
         dia = self.dia
         n = len(self.precursor["precursor_idx"])
         if n == 0:
-            return empty_candidates()
+            return None
         arrays = self._prepare_batch_arrays()
         W = arrays["window_len"]
 
@@ -195,7 +222,7 @@ class CandidateSelection:
             )
 
         sigma = rt_kernel_sigma(cfg.fwhm_rt, cfg.sigma_scale_rt, dia.cycle_time * stride)
-        kernel = torch.from_numpy(gaussian_kernel_1d(cfg.kernel_size, sigma)).to(self.device)
+        kernel = to_device(gaussian_kernel_1d(cfg.kernel_size, sigma), self.device)
         # size and tolerance knobs are in cycle units: scale to coarse cells
         min_rt_k = max(1, cfg.min_size_rt // stride)
         max_rt_k = max(min_rt_k + 1, -(-cfg.max_size_rt // stride))
@@ -237,9 +264,9 @@ class CandidateSelection:
             cap = cfg.batch_size
             static_kw.update(cycle_stride=stride)
         keys = ("frag_slot", "frag_mz", "iso_slot", "iso_mz", "cycle_start", "n_valid_fragments")
-        batch_dev = {k: torch.from_numpy(arrays[k]).to(self.device) for k in keys}
+        batch_dev = {k: to_device(arrays[k], self.device) for k in keys}
 
-        results = []
+        pending = []
         for b0, bsz in batch_schedule(n, cap):
             b1 = min(b0 + bsz, n)
             sl = {k: v[b0:b1] for k, v in batch_dev.items()}
@@ -250,24 +277,29 @@ class CandidateSelection:
                 cfg.fragment_mz_tolerance, cfg.precursor_mz_tolerance,
                 sl["n_valid_fragments"], **static_kw,
             )
-            results.append((b0, res))
+            pending.append((b0, to_host_async(res)))
+        return {
+            "pending": pending,
+            "stride": stride,
+            "use_4d": use_4d,
+            "n": n,
+            "window_len": W,
+            # the JAX driver ships scores as float16 when every value fits
+            "f16_scores": (
+                dia.n_cycles < 32000
+                and cfg.candidate_count <= 16
+                and (not use_4d or dia.n_scan_bins < 32000)
+            ),
+        }
 
-        # the JAX driver ships scores as float16 when every value fits 16 bits
-        f16_scores = (
-            dia.n_cycles < 32000
-            and cfg.candidate_count <= 16
-            and (not use_4d or dia.n_scan_bins < 32000)
-        )
-        frames = [self._decode(b0, res, stride, f16_scores) for b0, res in results]
-        out = {k: np.concatenate([f[k] for f in frames]) for k in CANDIDATE_COLUMNS}
-        logger.info(
-            "Candidate selection: %d candidates for %d precursors (window %d cycles%s)",
-            len(out["precursor_idx"]), n, W, f", {dia.n_scan_bins} scan bins" if use_4d else "",
-        )
-        return out
+    def _harvest_iter(self, state: dict):
+        """Yield ``(b0, candidates)`` per batch in batch order, each as soon
+        as its own copies have landed: a consumer (``search/pipelined.py``)
+        enqueues scoring while later batches still run."""
+        for b0, pending in state["pending"]:
+            yield b0, self._decode(b0, host_arrays(pending), state["stride"], state["f16_scores"])
 
-    def _decode(self, b0: int, res: dict, stride: int, f16_scores: bool) -> dict:
-        r = {k: v.cpu().numpy() for k, v in res.items()}
+    def _decode(self, b0: int, r: dict, stride: int, f16_scores: bool) -> dict:
         rows, cands = np.nonzero(r["valid"])
         score = r["score"][rows, cands]
         if f16_scores:

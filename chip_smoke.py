@@ -28,7 +28,16 @@ Phases, in order; any failure exits non-zero:
    with the L2 flushed before each run, beside the plain version, the least
    time the card needs for the bytes the function must move, and the bytes
    the kernel's loads, copies and stores cover;
-6. the ``{"kernels": [...]}`` line, then the card's name and power limit,
+6. IDs at 1% FDR, on both worlds: ``PipelinedExtraction`` against the
+   sequential drivers (walls, launches, the same candidates and PSMs), then
+   ``FDRManager.fit_predict`` on the pipelined PSMs (the network fitted on
+   the card; its steps timed; the identified and the realised false share
+   of the IDs at 1% FDR gated against the JAX package's own readings); on
+   the 4D world the RT-windowed search against the whole run (the same
+   PSMs, peak memory); the classifier on the card against the CPU on a
+   small world. Phase [3] records and checks the kernel launches of these
+   drivers too;
+7. the ``{"kernels": [...]}`` line, then the card's name and power limit,
    then the ``{"ok": true, ...}`` line last.
 """
 
@@ -76,6 +85,24 @@ PSM_SHARE_MIN = 0.995
 # --windows 3`, on the CPU: a quarter of the world, 3 windows instead of 12;
 # candidates identical to the port's), so the gate is that less 0.005
 TRUTH_SHARE_WIDE_4D_MIN = 0.9297
+# phase [6]: share of paired PSM feature values within FEATURE_REL_TOL
+# (pipelined against sequential, RT-windowed against the whole run)
+FEATURE_MATCH_MIN = 0.99
+RT_WINDOWS = 4
+# IDs at 1% FDR (phase [6]), per world: the share of detectable targets
+# identified, and the share of accepted targets whose PSM lies more than 3
+# cycles from the true apex. The JAX package's drivers and FDRManager read,
+# on the CPU at a quarter of each world (3 isolation windows instead of 12,
+# the same density per window): 3D identified 1.0000, false 0.0718
+# (`PYTHONPATH=. python tests/test_torch_slice_fdr.py --peptides 1500
+# --windows 3`); 4D identified 1.0000, false 0.0270 (`... --peptides 6250
+# --windows 3 --mobility`). Gates: identified at least that less 0.005; the
+# false share at most 0.02, or that reading plus 0.005 where it is higher
+IDENTIFIED_MIN = {"": 0.995, "_4d": 0.995}
+FALSE_MAX = {"": 0.0768, "_4d": 0.0320}
+# one classifier state on the card and on the CPU; two independent fits
+CLASSIFIER_PROBA_TOL = 1e-5
+FIT_JACCARD_MIN = 0.95
 # the path on the card against the path on the CPU, on a small world
 CANDIDATE_MATCH_MIN = 0.99
 FEATURE_REL_TOL = 1e-2
@@ -120,8 +147,9 @@ def card_line() -> str:
 # ---------------------------------------------------------------------------
 # worlds and the main path
 # ---------------------------------------------------------------------------
-def make_world(n_peptides, n_cycles, seed=5, **kw):
-    from alphadia_torch.rawdata import DiaData
+def make_spectra(n_peptides, n_cycles, seed=5, n_windows=12, noise=80, **kw):
+    """A seeded run of the generator with one decoy per target: (spectra,
+    precursors, fragments)."""
     from alphadia_torch.testing.synthetic import (
         SyntheticConfig,
         add_synthetic_decoys,
@@ -130,11 +158,18 @@ def make_world(n_peptides, n_cycles, seed=5, **kw):
 
     spectra, prec, frag = make_synthetic_dia(
         SyntheticConfig(
-            n_peptides=n_peptides, n_windows=12, n_cycles=n_cycles,
-            noise_peaks_per_spectrum=80, seed=seed, **kw,
+            n_peptides=n_peptides, n_windows=n_windows, n_cycles=n_cycles,
+            noise_peaks_per_spectrum=noise, seed=seed, **kw,
         )
     )
     prec, frag = add_synthetic_decoys(prec, frag)
+    return spectra, prec, frag
+
+
+def make_world(n_peptides, n_cycles, seed=5, **kw):
+    from alphadia_torch.rawdata import DiaData
+
+    spectra, prec, frag = make_spectra(n_peptides, n_cycles, seed, **kw)
     return DiaData.from_spectra(spectra, n_scan_bins=N_SCAN_BINS), prec, frag
 
 
@@ -571,15 +606,22 @@ def profile_main_path(world, tag, out_dir: Path):
         log(f"[profile{tag}] {line}")
 
 
-def record_and_compare(worlds):
-    """A warm-up of each path with every kernel call recorded; then each
-    call's kernel result against the plain version. Returns the calls and,
-    per variant, the largest abs and rel errors."""
+def record_and_compare(worlds, spectra):
+    """A warm-up of each path with every kernel call recorded (the three
+    passes, the pipelined driver of phase [6] and, on the 4D world, its
+    RT-windowed search); then each call's kernel result against the plain
+    version. Returns the calls and, per variant, the largest abs and rel
+    errors."""
     import torch
 
     t0 = time.perf_counter()
     with Recorder() as rec:
         warm = {tag: main_path(world, tag, rec=rec)[0] for tag, world in worlds.items()}
+        for tag, world in worlds.items():
+            rec.stage = "pipelined" + tag
+            pipelined(world)
+        rec.stage = "rt_windowed_4d"
+        rt_windowed(spectra["_4d"], worlds["_4d"])
     torch.cuda.synchronize()
     log(f"[3] warm-up passes of both paths: {len(rec.calls)} kernel launches recorded in {time.perf_counter() - t0:.2f} s")
     worst = {}
@@ -662,6 +704,313 @@ def timed_passes(label, world, tag, repeats, name, card):
 
 
 # ---------------------------------------------------------------------------
+# 6. IDs at 1% FDR
+# ---------------------------------------------------------------------------
+def fdr_configs():
+    """Selection and scoring configs of phase [6]: the main path's
+    selection, float32 scoring (the classifier's training precision)."""
+    from alphadia_torch.search.scoring import ScoringConfig
+    from alphadia_torch.search.selection import SelectionConfig
+
+    return SelectionConfig(rt_tolerance=60.0, candidate_count=3), ScoringConfig(batch_size=8192, collect_fragments=True)
+
+
+def sequential(world, device=None):
+    from alphadia_torch.search.scoring import CandidateScoring
+    from alphadia_torch.search.selection import CandidateSelection
+
+    dia, prec, frag = world
+    device = device or DEVICE
+    sel_cfg, score_cfg = fdr_configs()
+    cands = CandidateSelection(dia, prec, frag, sel_cfg, device=device)()
+    return (cands, *CandidateScoring(dia, prec, frag, score_cfg, device=device)(cands))
+
+
+def pipelined(world, device=None):
+    from alphadia_torch.search.pipelined import PipelinedExtraction
+
+    dia, prec, frag = world
+    return PipelinedExtraction(dia, prec, frag, *fdr_configs(), device=device or DEVICE)()
+
+
+def rt_windowed(spectra, world, device=None):
+    from alphadia_torch.search.streaming import RtWindowedSearch
+
+    _, prec, frag = world
+    search = RtWindowedSearch(
+        spectra, prec, frag, *fdr_configs(), n_rt_windows=RT_WINDOWS,
+        diadata_kwargs={"n_scan_bins": N_SCAN_BINS}, device=device or DEVICE,
+    )
+    return search, search()
+
+
+def counted(fn):
+    """``fn()`` on the card with the kernel's count set to 0 just before and
+    read just after: (result, wall seconds, launches)."""
+    import torch
+
+    from alphadia_torch.ops import xic_cuda
+
+    torch.cuda.synchronize()
+    xic_cuda.launches = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, xic_cuda.launches
+
+
+def paired_features(a, b):
+    """PSMs of ``a`` and ``b`` paired by (precursor_idx, rank): the key sets,
+    and per feature the deviation of a from b relative to max(|b|, 1) (mass
+    errors: absolute, ppm) and whether the values are bit-equal."""
+    from alphadia_torch.search.scoring import FEATURE_COLUMNS
+
+    ka = list(zip(a["precursor_idx"].tolist(), a["rank"].tolist()))
+    kb = list(zip(b["precursor_idx"].tolist(), b["rank"].tolist()))
+    ib = {k: i for i, k in enumerate(kb)}
+    pairs = [(i, ib[k]) for i, k in enumerate(ka) if k in ib]
+    ia, jb = np.array([p[0] for p in pairs], np.int64), np.array([p[1] for p in pairs], np.int64)
+    dev = np.concatenate([
+        np.abs(a[f][ia].astype(np.float64) - b[f][jb]) / (1.0 if f in MASS_ERRORS else np.maximum(np.abs(b[f][jb]), 1.0))
+        for f in FEATURE_COLUMNS
+    ])
+    equal = np.concatenate([a[f][ia] == b[f][jb] for f in FEATURE_COLUMNS])
+    return set(ka), set(kb), dev, equal, ia, jb
+
+
+def check_same_psms(label, what, a, b, card):
+    """Keys identical, features >= FEATURE_MATCH_MIN within FEATURE_REL_TOL."""
+    ka, kb, dev, equal, _, _ = paired_features(a, b)
+    within = float(np.mean(dev <= FEATURE_REL_TOL)) if len(dev) else 0.0
+    log(
+        f"[6] {label} {what}: PSM keys {len(ka)} / {len(kb)}, identical {ka == kb}; feature values within "
+        f"{FEATURE_REL_TOL} {within:.6f} (bound {FEATURE_MATCH_MIN}), bit-equal {float(np.mean(equal)):.6f} ({card})"
+    )
+    if ka != kb or within < FEATURE_MATCH_MIN:
+        raise AssertionError(f"{label}: {what} disagree")
+
+
+def id_shares(dia, prec, out):
+    """(identified share, realised false share, targets, decoys) at q <=
+    0.01: the share of detectable targets with an accepted target PSM, and
+    the share of accepted targets whose PSM lies more than 3 cycles from the
+    generator's true apex."""
+    accepted = out["qval"] <= 0.01
+    target = out["_decoy"] == 0
+    pidx = out["precursor_idx"][accepted & target]
+    det = prec["_truth_detectable"] & (prec["decoy"] == 0)
+    identified = float(np.isin(prec["precursor_idx"][det], pidx).mean())
+    truth_cycle = np.abs(dia.cycle_rt[None, :] - prec["_truth_rt"][:, None]).argmin(1)
+    row = {int(p): i for i, p in enumerate(prec["precursor_idx"])}
+    rows = np.array([row[int(p)] for p in pidx], np.int64)
+    off = np.abs(out["frame_center"][accepted & target] - truth_cycle[rows]) > 3
+    return identified, float(off.mean()) if len(off) else 0.0, len(pidx), int((accepted & ~target).sum())
+
+
+class FdrStepTimes:
+    """Host seconds of the FDR steps, each wrapped where ``perform_fdr``
+    calls it: the fit (ends when its losses reach the host), the
+    probabilities, the q-values, fragment competition and ``keep_best``."""
+
+    def __enter__(self):
+        import alphadia_torch.fdr.fdr as fdr_mod
+        from alphadia_torch.models.classifier import BinaryClassifier
+
+        self.seconds = {}
+        self.saved = []
+        for obj, attr, key in (
+            (BinaryClassifier, "fit", "fit"), (BinaryClassifier, "predict_proba", "predict"),
+            (fdr_mod, "get_q_values", "q_values"), (fdr_mod.FragmentCompetition, "__call__", "fragment_competition"),
+            (fdr_mod, "keep_best", "keep_best"),
+        ):
+            fn = getattr(obj, attr)
+            self.saved.append((obj, attr, fn))
+
+            def timed(*a, _fn=fn, _key=key, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*a, **kw)
+                finally:
+                    self.seconds[_key] = self.seconds.get(_key, 0.0) + time.perf_counter() - t0
+
+            setattr(obj, attr, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for obj, attr, fn in self.saved:
+            setattr(obj, attr, fn)
+
+
+def fdr_manager(dia, device=None):
+    from alphadia_torch.models.classifier import BinaryClassifier
+    from alphadia_torch.workflow.managers.fdr_manager import FDRManager
+    from alphadia_torch.workflow.peptidecentric.peptidecentric import FDR_FEATURE_COLUMNS
+
+    return FDRManager(
+        FDR_FEATURE_COLUMNS, BinaryClassifier(random_state=0, device=device or DEVICE), dia_cycle=dia.cycle,
+        random_state=0,
+    )
+
+
+def ids_at_1pct(label, tag, world, psm, frags, name, card):
+    """``FDRManager.fit_predict`` on the pipelined PSMs, its steps timed;
+    the estimator, the IDs at 1% FDR and their truth, gated."""
+    dia, prec, _ = world
+    mgr = fdr_manager(dia)
+    with FdrStepTimes() as st:
+        t0 = time.perf_counter()
+        out = mgr.fit_predict(psm, decoy_strategy="precursor", competitive=True, df_fragments=frags)
+        wall = time.perf_counter() - t0
+    est = out.attrs["fdr_estimator"]
+    steps = mgr.classifier_store[-1].n_steps if mgr.classifier_store else 0
+    identified, false, n_t, n_d = id_shares(dia, prec, out)
+    s = st.seconds
+    log(
+        f"[6] {label} FDR: estimator {est}, {len(psm['precursor_idx'])} PSMs; fit_predict {wall:.4f} s: fit "
+        f"{s.get('fit', 0.0):.4f} s, {steps} steps, {s.get('fit', 0.0) / max(steps, 1) * 1e3:.4f} ms a step; predict "
+        f"{s.get('predict', 0.0) * 1e3:.2f} ms; host: q-values {s.get('q_values', 0.0):.4f} s, fragment competition "
+        f"{s.get('fragment_competition', 0.0):.4f} s, keep_best {s.get('keep_best', 0.0):.4f} s ({name}, {card})"
+    )
+    log(
+        f"[6] {label} IDs at 1% FDR: {n_t} targets, {n_d} decoys; identified share of detectable targets "
+        f"{identified:.4f} (bound {IDENTIFIED_MIN[tag]}); realised false share {false:.4f} (bound {FALSE_MAX[tag]}) "
+        f"({name}, {card})"
+    )
+    if est != "nn":
+        raise AssertionError(f"{label}: the FDR estimator is {est}, not the network")
+    if identified < IDENTIFIED_MIN[tag] or false > FALSE_MAX[tag]:
+        raise AssertionError(f"{label}: IDs at 1% FDR miss their gates")
+
+
+class FrozenClassifier:
+    """A fitted classifier that ``fit`` leaves as it is."""
+
+    fitted = True
+
+    def __init__(self, clf):
+        self.clf = clf
+
+    def fit(self, x, y):
+        pass
+
+    def predict_proba(self, x):
+        return self.clf.predict_proba(x)
+
+
+def classifier_card_vs_cpu(name, card):
+    """On a small world (the CPU path's PSMs): the packaged classifier's
+    state on both devices (probabilities within CLASSIFIER_PROBA_TOL, the
+    same IDs at 1%), and two independent fits, card and CPU (Jaccard of
+    their IDs at 1% >= FIT_JACCARD_MIN). The card's fit is the first of the
+    process: its wall holds the start-up of the training kernels."""
+    from alphadia_torch.fdr.fdr import perform_fdr
+    from alphadia_torch.rawdata import DiaData
+    from alphadia_torch.utils.frame import take
+
+    spectra, prec, frag = make_spectra(300, 400, n_windows=1, noise=200)
+    dia = DiaData.from_spectra(spectra)
+    _, psm, frags = pipelined((dia, prec, frag), device="cpu")
+    managers = {d: fdr_manager(dia, d) for d in (DEVICE, "cpu")}
+    clfs = {d: m._load_packaged_classifier() for d, m in managers.items()}
+    cols = [c for c in managers["cpu"].feature_columns if c in psm]
+    X = np.stack([psm[c].astype(np.float32) for c in cols], 1)
+    diff = float(np.abs(clfs[DEVICE].predict_proba(X) - clfs["cpu"].predict_proba(X)).max())
+
+    def ids(out):
+        return set(out["precursor_idx"][(out["qval"] <= 0.01) & (out["_decoy"] == 0)].tolist())
+
+    target, decoy = take(psm, psm["decoy"] == 0), take(psm, psm["decoy"] == 1)
+    frozen = {
+        d: ids(perform_fdr(FrozenClassifier(c), cols, target, decoy, competitive=True, random_state=0)) for d, c in clfs.items()
+    }
+    fits, walls = {}, {}
+    for d, m in managers.items():
+        t0 = time.perf_counter()
+        fits[d] = m.fit_predict(psm, competitive=True, df_fragments=frags)
+        walls[d] = time.perf_counter() - t0
+    fit_ids = {d: ids(out) for d, out in fits.items()}
+    jac = len(fit_ids[DEVICE] & fit_ids["cpu"]) / max(len(fit_ids[DEVICE] | fit_ids["cpu"]), 1)
+    log(
+        f"[6] classifier, card vs CPU on a small world ({len(psm['precursor_idx'])} PSMs): one state, max proba "
+        f"difference {diff:.3g} (bound {CLASSIFIER_PROBA_TOL}), IDs at 1% {len(frozen[DEVICE])} / {len(frozen['cpu'])} "
+        f"identical {frozen[DEVICE] == frozen['cpu']}; two fits ({fits[DEVICE].attrs['fdr_estimator']}, "
+        f"{fits['cpu'].attrs['fdr_estimator']}): IDs {len(fit_ids[DEVICE])} / {len(fit_ids['cpu'])}, Jaccard {jac:.4f} "
+        f"(bound {FIT_JACCARD_MIN}); fit_predict walls: card {walls[DEVICE]:.4f} s (the process's first fit on the card), "
+        f"CPU {walls['cpu']:.4f} s ({name}, {card})"
+    )
+    if diff > CLASSIFIER_PROBA_TOL or frozen[DEVICE] != frozen["cpu"] or jac < FIT_JACCARD_MIN:
+        raise AssertionError("the classifier on the card disagrees with the CPU")
+    if any(f.attrs["fdr_estimator"] != "nn" for f in fits.values()):
+        raise AssertionError("the small world's fits did not take the network")
+
+
+def candidate_keys(c):
+    cols = ("precursor_idx", "rank", "frame_start", "frame_center", "frame_stop", "scan_start", "scan_center", "scan_stop")
+    return set(zip(*(c[k].tolist() for k in cols)))
+
+
+def phase6(label, tag, world, name, card, launches, secs, spectra=None):
+    """Pipelined against sequential (wall, launches, equality), the FDR
+    stack on the pipelined PSMs, and (4D) the RT-windowed search against
+    the whole-run pipelined one."""
+    import torch
+
+    n_prec = len(world[1]["precursor_idx"])
+    runs = {"sequential": [], "pipelined": []}
+    outs = {}
+    for kind in ("sequential", "pipelined", "pipelined", "sequential", "sequential", "pipelined"):
+        out, wall, n = counted(lambda: (sequential if kind == "sequential" else pipelined)(world))
+        runs[kind].append((wall, n))
+        outs.setdefault(kind, out)
+    for kind, r in runs.items():
+        walls = sorted(w for w, _ in r)
+        log(
+            f"[6] {label} {kind}: wall s {', '.join(f'{w:.4f}' for w, _ in r)}; median {np.median(walls):.4f} s = "
+            f"{n_prec / np.median(walls):.1f} precursors/s; kernel launches {r[0][1]} ({name}, {card})"
+        )
+        if r[0][1] <= 0:
+            raise AssertionError(f"{label}: the {kind} path launched the kernel no time")
+    launches["pipelined" + tag] = runs["pipelined"][0][1]
+    secs["pipelined" + tag] = runs["pipelined"][0][0]
+    (cs, ps, _), (cp, pp, fp) = outs["sequential"], outs["pipelined"]
+    same = candidate_keys(cs) == candidate_keys(cp)
+    log(
+        f"[6] {label} candidates: sequential {len(cs['precursor_idx'])}, pipelined {len(cp['precursor_idx'])}, "
+        f"identical sets {same} ({card})"
+    )
+    if not same:
+        raise AssertionError(f"{label}: pipelined candidates differ from the sequential ones")
+    check_same_psms(label, "pipelined vs sequential PSMs", pp, ps, card)
+    ids_at_1pct(label, tag, world, pp, fp if not tag else None, name, card)
+    if spectra is None:
+        return
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    _, wall_whole, _ = counted(lambda: pipelined(world))
+    whole_mem = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    (search, (pw, _)), wall_win, n = counted(lambda: rt_windowed(spectra, world))
+    win_mem = torch.cuda.max_memory_allocated()
+    launches["rt_windowed" + tag] = n
+    secs["rt_windowed" + tag] = wall_win
+    log(
+        f"[6] {label} RT-windowed search ({RT_WINDOWS} windows): wall {wall_win:.4f} s, {n} kernel launches, "
+        f"max_memory_allocated {win_mem / 2**30:.3f} GiB against {whole_mem / 2**30:.3f} GiB for the whole run "
+        f"({wall_whole:.4f} s; {base / 2**30:.3f} GiB resident before either), peak window store "
+        f"{search.peak_window_slab_mb:.1f} MB ({name}, {card})"
+    )
+    if n <= 0:
+        raise AssertionError(f"{label}: the RT-windowed search launched the kernel no time")
+    ia = {k: i for i, k in enumerate(zip(pw["precursor_idx"].tolist(), pw["rank"].tolist()))}
+    keys = list(zip(pp["precursor_idx"].tolist(), pp["rank"].tolist()))
+    centre_equal = all(k in ia and pw["frame_center"][ia[k]] == pp["frame_center"][i] for i, k in enumerate(keys))
+    log(f"[6] {label} RT-windowed vs whole run: absolute frame_center equal {centre_equal} ({card})")
+    if not centre_equal:
+        raise AssertionError(f"{label}: RT-windowed frame_center differs from the whole run")
+    check_same_psms(label, "RT-windowed vs whole-run PSMs", pw, pp, card)
+
+
+# ---------------------------------------------------------------------------
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true", help="also trace one pass of each path")
@@ -691,10 +1040,14 @@ def main(argv=None) -> int:
     log(f"[2] built {lib.relative_to(root)} in {time.perf_counter() - t0:.2f} s ({card})")
 
     # ---- worlds (set-up) ----------------------------------------------------
-    worlds = {}
+    from alphadia_torch.rawdata import DiaData
+
+    worlds, spectra = {}, {}
     for tag, n_pep, kw in (("", N_PEPTIDES, {}), ("_4d", N_PEPTIDES_4D, {"with_mobility": True})):
         t0 = time.perf_counter()
-        worlds[tag] = dia, prec, frag = make_world(n_pep, N_CYCLES, **kw)
+        spectra[tag], prec, frag = make_spectra(n_pep, N_CYCLES, **kw)
+        dia = DiaData.from_spectra(spectra[tag], n_scan_bins=N_SCAN_BINS)
+        worlds[tag] = dia, prec, frag
         dev = dia.device_arrays(1, DEVICE)
         store = dev["peak_store"] if "peak_store" in dev else (dev["peak_packed"],)
         store_bytes = sum(t.numel() * t.element_size() for t in store)
@@ -707,7 +1060,7 @@ def main(argv=None) -> int:
         )
 
     # ---- 3. kernel vs plain on the card -----------------------------------
-    calls, worst = record_and_compare(worlds)
+    calls, worst = record_and_compare(worlds, spectra)
     for v in ("a_intensity", "b_mz_delta", "c_scan_window", "d_coarse"):
         if v not in worst:
             raise AssertionError(f"variant {v} was not checked")
@@ -776,17 +1129,25 @@ def main(argv=None) -> int:
     del flush
     for stage, acc in per_stage.items():
         b_ms = acc["bytes"] / HBM_BYTES_PER_S * 1e3
+        n_launch = sum(1 for st, _, _ in calls if st == stage)
+        wall = f"{secs[stage] * 1e3:.2f} ms" if stage in secs else "timed in phase [6]"
         log(
-            f"[5] per pass {stage}: {launches[stage]} launches, kernel {acc['ms']:.4f} ms ({b_ms / acc['ms']:.2f} of "
+            f"[5] per pass {stage}: {n_launch} launches, kernel {acc['ms']:.4f} ms ({b_ms / acc['ms']:.2f} of "
             f"bound), L2 flushed {acc['flushed_ms']:.4f} ms ({b_ms / acc['flushed_ms']:.2f}), plain "
             f"{acc['plain_ms']:.4f} ms (peak {acc['plain_mem'] / 2**20:.1f} MiB), bound {b_ms:.4f} ms (bytes: "
             f"{acc['bytes'] / 1e6:.2f} MB of the function, {acc['covered'] / 1e6:.2f} MB covered by the kernel), wall of the "
-            f"pass {secs[stage] * 1e3:.2f} ms ({name}, {card})"
+            f"pass {wall} ({name}, {card})"
         )
     bound_ms = max(tot["bytes"] / HBM_BYTES_PER_S, tot["ops"] / FP32_OPS_PER_S) * 1e3
     bound_by = "bytes" if tot["bytes"] / HBM_BYTES_PER_S >= tot["ops"] / FP32_OPS_PER_S else "operations"
 
-    # ---- 6. summary lines ---------------------------------------------------
+    # ---- 6. IDs at 1% FDR ---------------------------------------------------
+    classifier_card_vs_cpu(name, card)  # also the process's first fit on the card
+    phase6("3D", "", worlds[""], name, card, launches, secs)
+    phase6("4D", "_4d", worlds["_4d"], name, card, launches, secs, spectra=spectra["_4d"])
+    log(f"[6] kernel launches per run: {json.dumps(launches)} ({name}, {card})")
+
+    # ---- 7. summary lines ---------------------------------------------------
     kernels = {
         "kernels": [
             {

@@ -2,8 +2,11 @@
 queries, on the kernel's tiling (query counts that leave a block part
 full, a block of masked queries only, a slab of exactly ``slab`` peaks, W
 from 16 to 1024, Q of 1, 3 and 24), on the edges of ``torch_xic_edges``
-and on the launches that a 4D scoring pass makes; and the plain 4D
-extraction rerun on the card, which must give the same bits.
+and on the launches that a 4D scoring pass makes; the plain 4D
+extraction rerun on the card, which must give the same bits; the
+pipelined extraction against sequential selection and scoring, both
+enqueuing every batch before they wait for any, and classifier fits on
+the card (one held to a fit on the CPU).
 
 Marked ``gpu``: each test skips where no CUDA card is present, and the
 decision is taken inside the test. On the card the file needs neither JAX
@@ -21,14 +24,17 @@ import numpy as np
 import pytest
 import torch
 
+from alphadia_torch.models.classifier import BinaryClassifier
 from alphadia_torch.ops import scoring as ops_scoring
 from alphadia_torch.ops import xic_cuda
 from alphadia_torch.ops.xic import extract_xic_4d, extract_xic_packed
 from alphadia_torch.rawdata import DiaData
 from alphadia_torch.search.common import kernel_available
-from alphadia_torch.search.scoring import CandidateScoring, ScoringConfig
+from alphadia_torch.search.pipelined import PipelinedExtraction
+from alphadia_torch.search.scoring import FEATURE_COLUMNS, CandidateScoring, ScoringConfig
 from alphadia_torch.search.selection import CandidateSelection, SelectionConfig
 from alphadia_torch.testing.synthetic import SyntheticConfig, add_synthetic_decoys, make_synthetic_dia
+from alphadia_torch.utils.device import batch_schedule
 from torch_xic_edges import EDGE_CASES, W as EDGE_W, edge_inputs, edge_world_config
 
 pytest_plugins = ("torch_port_plugin",)
@@ -308,3 +314,119 @@ def test_xic_4d_reruns_bit_identical(card):
     )
     for a, b, atol in zip(first, on_cpu, (1e-4, 1e-8)):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-6, atol=atol)
+
+
+def _library_world(with_mobility=False):
+    spectra, prec, frag = make_synthetic_dia(
+        SyntheticConfig(n_peptides=300, n_windows=6, n_cycles=350, with_mobility=with_mobility, seed=21)
+    )
+    prec, frag = add_synthetic_decoys(prec, frag)
+    return spectra, DiaData.from_spectra(spectra, n_scan_bins=8), prec, frag
+
+
+@pytest.mark.parametrize("with_mobility", [False, True], ids=["3d", "4d"])
+def test_pipelined_equals_sequential_on_card(card, with_mobility):
+    """The pipelined driver on the card gives the sequential drivers'
+    candidates and PSMs (features within rtol 1e-5, atol 1e-6: the chunks
+    differ, the arithmetic of a row does not)."""
+    _, dia, prec, frag = _library_world(with_mobility)
+    sel = SelectionConfig(candidate_count=3, batch_size=512)
+    score = ScoringConfig(batch_size=256, collect_fragments=True)
+    cands = CandidateSelection(dia, prec, frag, sel, device=card)()
+    psm, _ = CandidateScoring(dia, prec, frag, score, device=card)(cands)
+    before = xic_cuda.launches
+    cands_p, psm_p, _ = PipelinedExtraction(dia, prec, frag, sel, score, sel_batch_cap=128, device=card)()
+    assert xic_cuda.launches > before
+
+    def rows(frame, keys):
+        order = np.lexsort([frame[k] for k in reversed(keys)])
+        return {k: v[order] for k, v in frame.items()}
+
+    keys = ("precursor_idx", "rank", "frame_start", "frame_center", "frame_stop", "scan_start", "scan_stop")
+    a, b = rows(cands, keys), rows(cands_p, keys)
+    for k in keys:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    a, b = rows(psm, ("precursor_idx", "rank")), rows(psm_p, ("precursor_idx", "rank"))
+    assert len(a["precursor_idx"]) == len(b["precursor_idx"]) > 50
+    np.testing.assert_array_equal(a["precursor_idx"], b["precursor_idx"])
+    for f in FEATURE_COLUMNS:
+        np.testing.assert_allclose(b[f], a[f], rtol=1e-5, atol=1e-6, err_msg=f)
+
+
+def test_submit_enqueues_every_batch_before_any_wait(card):
+    """``_submit`` and the scoring dispatch make no call that waits for the
+    device (torch's sync debug mode raises on one: a copy to pageable
+    memory, ``.item()``, ``nonzero``, a boolean-mask index), and leave one
+    event per selection batch and scoring chunk. (The card's launch queue
+    holds about a thousand kernels: a host that enqueues more than that
+    ahead of the card blocks in the launch without any synchronisation.)
+    The harvest then equals ``__call__``."""
+    _, dia, prec, frag = _library_world()
+    sel = CandidateSelection(dia, prec, frag, SelectionConfig(candidate_count=3, batch_size=256), device=card)
+    score = CandidateScoring(dia, prec, frag, ScoringConfig(batch_size=256), device=card)
+    expected = sel()  # also uploads the store and warms the pinned-memory cache
+    psm_expected, _ = score(expected)
+    dev = dia.device_arrays(1, card)
+    geo = score._candidate_geometry(expected)
+    n = len(expected["precursor_idx"])
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)  # the card stays busy while the host enqueues
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state = sel._submit()
+        lib, lib_dev = score._upload_lib()
+        chunks = [
+            score._dispatch_chunk(dev, lib_dev, score._geo_chunk(geo, b0, min(b0 + bsz, n)), geo["window_len"])
+            for b0, bsz in batch_schedule(n, score._batch_cap())
+        ]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    events = [p[1] for _, p in state["pending"]] + [p[1] for p in chunks]
+    assert len(state["pending"]) == len(batch_schedule(len(prec["precursor_idx"]), 256)) > 1
+    assert len(chunks) > 1 and all(isinstance(e, torch.cuda.Event) for e in events)
+    got = [f for _, f in sel._harvest_iter(state)]
+    for k in expected:
+        np.testing.assert_array_equal(np.concatenate([f[k] for f in got]), expected[k], err_msg=k)
+    psm, _ = score._harvest(chunks, expected, lib, geo)
+    for f in FEATURE_COLUMNS:
+        np.testing.assert_array_equal(psm[f], psm_expected[f], err_msg=f)
+
+
+def test_classifier_fit_on_card(card):
+    """A fit on the card: finite losses, and the fitted state on the CPU
+    gives the card's probabilities within 1e-5."""
+    rng = np.random.default_rng(1)
+    x = np.concatenate([rng.normal(1.0, 1.0, (3000, 12)), rng.normal(0.0, 1.0, (3000, 12))]).astype(np.float32)
+    y = np.concatenate([np.zeros(3000), np.ones(3000)]).astype(np.float32)
+    clf = BinaryClassifier(random_state=0, epochs=3, device=card)
+    clf.fit(x, y)
+    assert clf.model.dense[0].weight.device.type == "cuda"
+    assert len(clf.metrics["train_loss"]) == 3 and np.isfinite(clf.metrics["train_loss"]).all()
+    on_cpu = BinaryClassifier.from_state_dict(clf.to_state_dict(), "cpu")
+    np.testing.assert_allclose(clf.predict_proba(x), on_cpu.predict_proba(x), rtol=0, atol=1e-5)
+    assert (clf.predict(x[:3000]) == 0).mean() > 0.7
+
+
+def test_classifier_fit_on_card_matches_the_cpu(card):
+    """A dropout-0 fit from one initial state and one ``random_state`` on
+    the card and on the CPU (two epochs, 92 steps): parameters, BatchNorm
+    running statistics and the epoch losses agree within the tolerances
+    that hold the CPU fit to JAX's (atol 1e-4, rtol 1e-3;
+    ``test_torch_classifier.test_training_matches_jax``)."""
+    from alphadia_torch.convert import classifier_to_jax
+
+    rng = np.random.default_rng(1)
+    x = np.concatenate([rng.normal(1.5, 1.0, (3000, 10)), rng.normal(0.0, 1.0, (3000, 10))]).astype(np.float32)
+    y = np.concatenate([np.zeros(3000), np.ones(3000)]).astype(np.float32)
+    fits = {}
+    for dev in (card, "cpu"):
+        clf = BinaryClassifier(random_state=0, epochs=2, dropout=0.0, device=dev)
+        clf.fit(x, y)
+        fits[dev if dev == "cpu" else "card"] = clf
+    assert fits["card"].n_steps == fits["cpu"].n_steps == 2 * ((len(x) - 6) // 128)
+    got, want = (classifier_to_jax(fits[d].model.state_dict()) for d in ("card", "cpu"))
+    for group in ("params", "batch_stats"):
+        for layer, arrays in want[group].items():
+            for name, a in arrays.items():
+                np.testing.assert_allclose(got[group][layer][name], a, rtol=1e-3, atol=1e-4, err_msg=f"{layer}/{name}")
+    np.testing.assert_allclose(fits["card"].metrics["train_loss"], fits["cpu"].metrics["train_loss"], rtol=1e-3, atol=1e-4)

@@ -1,5 +1,6 @@
-"""The port imports without JAX, the JAX package or pandas, and its entry
-points refuse to run on a missing card unless the CPU is asked for."""
+"""The port imports without JAX, the JAX package, pandas or the other
+packages the card machine lacks (scikit-learn, xxhash, matplotlib, yaml),
+and its entry points refuse to run on a missing card unless the CPU is asked for."""
 
 import subprocess
 import sys
@@ -14,7 +15,10 @@ REPO = Path(__file__).resolve().parents[1]
 
 _BLOCKED_IMPORT = """
 import importlib.abc, sys
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "alphadia_tpu", "pandas")
+BLOCKED = (
+    "jax", "jaxlib", "flax", "optax", "alphadia_tpu", "pandas",
+    "sklearn", "xxhash", "matplotlib", "yaml",
+)
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
         if name.split(".")[0] in BLOCKED:
@@ -32,7 +36,19 @@ import alphadia_torch.ops.xic
 import alphadia_torch.search.common
 import alphadia_torch.search.scoring
 import alphadia_torch.search.selection
+import alphadia_torch.search.pipelined
+import alphadia_torch.search.streaming
 import alphadia_torch.testing.synthetic
+import alphadia_torch.utils.frame
+import alphadia_torch.utils.hashing
+import alphadia_torch.utils.misc
+import alphadia_torch.fdr.qvalues
+import alphadia_torch.fdr.fragcomp
+import alphadia_torch.fdr.fdr
+import alphadia_torch.models.classifier
+import alphadia_torch.workflow.managers.base
+import alphadia_torch.workflow.managers.fdr_manager
+import alphadia_torch.workflow.peptidecentric.peptidecentric
 loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not loaded, loaded
 print("ok")
@@ -67,6 +83,28 @@ def test_default_device_raises_without_cuda():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         CandidateSelection(DiaData.__new__(DiaData), {}, {})
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_fdr_and_driver_entry_points_default_to_the_card():
+    """The pipelined and RT-windowed drivers, the classifier and the FDR
+    manager take ``device=None`` as the card and raise without one."""
+    from alphadia_torch.models.classifier import BinaryClassifier
+    from alphadia_torch.rawdata import DiaData
+    from alphadia_torch.search.pipelined import PipelinedExtraction
+    from alphadia_torch.search.streaming import RtWindowedSearch
+    from alphadia_torch.workflow.managers.fdr_manager import FDRManager
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: device=None resolves to it")
+    for make in (
+        lambda: BinaryClassifier(),
+        lambda: FDRManager(["a"]),
+        lambda: PipelinedExtraction(DiaData.__new__(DiaData), {}, {}),
+        lambda: RtWindowedSearch(None, {}, {}),
+    ):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    assert BinaryClassifier(device="cpu").device.type == "cpu"
 
 
 def test_device_arrays_default_is_the_card():

@@ -6,11 +6,17 @@ reference checkout is absent. Its ``pytest_collection_modifyitems`` hook is
 session-wide, so the mark meant for the parity directory also lands on the
 port's tests, which need no reference checkout. The hook takes that one mark
 off the port's tests again and leaves every other test as it was.
+
+The suite runs in several worker processes at once; two intra-op threads a
+worker keep PyTorch's CPU kernels from oversubscribing the cores.
 """
 
 from __future__ import annotations
 
 import pytest
+import torch
+
+torch.set_num_threads(2)
 
 _PARITY_SKIP = "reference checkout not present"
 
