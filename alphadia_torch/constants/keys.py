@@ -1,0 +1,25 @@
+"""String constants: the column names of calibrated and library values."""
+
+from __future__ import annotations
+
+
+class ConstantsClass(type):
+    """Metaclass for namespaces of immutable string constants."""
+
+    def __setattr__(cls, name, value):
+        raise TypeError("Constants class cannot be modified")
+
+    def get_values(cls):
+        return [v for k, v in cls.__dict__.items() if not k.startswith("__") and isinstance(v, str)]
+
+
+class CalibCols(metaclass=ConstantsClass):
+    MZ_OBSERVED = "mz_observed"
+    MZ_LIBRARY = "mz_library"
+    MZ_CALIBRATED = "mz_calibrated"
+    RT_OBSERVED = "rt_observed"
+    RT_LIBRARY = "rt_library"
+    RT_CALIBRATED = "rt_calibrated"
+    MOBILITY_OBSERVED = "mobility_observed"
+    MOBILITY_LIBRARY = "mobility_library"
+    MOBILITY_CALIBRATED = "mobility_calibrated"

@@ -222,6 +222,14 @@ class DiaData:
         return int(self.cell_start[-1, -1, -1]) if self.cell_start is not None else 0
 
     @property
+    def rt_min(self) -> float:
+        return float(self.cycle_rt[0]) if len(self.cycle_rt) else 0.0
+
+    @property
+    def rt_max(self) -> float:
+        return float(self.cycle_rt[-1]) if len(self.cycle_rt) else 0.0
+
+    @property
     def cycle_time(self) -> float:
         """Average seconds per DIA cycle."""
         if self.n_cycles < 2:

@@ -1,8 +1,10 @@
-"""Host-side raw spectrum container (the normalized product of a reader)."""
+"""Host-side raw spectrum container (the normalized product of a reader)
+and the dispatch on a raw file's format."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from pathlib import Path
 
 import numpy as np
 
@@ -66,3 +68,54 @@ class SpectrumData:
             intensity=self.intensity[src],
             mobility=self.mobility[src] if self.has_mobility else None,
         )
+
+
+# the readers of these formats come with a later slice of the port
+# (ROADMAP queue 1, item 3: the readers)
+_LATER_READERS = {
+    ".mzml": "mzML (XML)",
+    ".hdf": "alphaRaw HDF",
+    ".hdf5": "alphaRaw HDF",
+    ".h5": "alphaRaw HDF",
+    ".d": "Bruker TDF",
+}
+
+
+def load_raw_file(path: str | Path, thread_count: int = 4) -> SpectrumData:
+    """Read a raw file by its extension. ``.npz`` (``save_npz``) is read
+    here; ``.mzML`` (plain or gzipped), ``.hdf`` and ``.d`` raise until the
+    slice that ports their readers; other formats raise as unsupported."""
+    path = Path(path)
+    suffix = ".mzml" if path.name.lower().endswith(".mzml.gz") else path.suffix.lower()
+    if suffix == ".npz":
+        return load_npz(path)
+    if suffix in _LATER_READERS:
+        raise ValueError(
+            f"{_LATER_READERS[suffix]} files ({path.name}) are not read yet: their reader comes with the "
+            "readers' slice of the port (ROADMAP queue 1, item 3). Supported now: .npz"
+        )
+    raise ValueError(
+        f"Unsupported raw file format '{suffix}' ({path}). Supported: .mzML, .hdf (alphaRaw), .d (Bruker TDF), "
+        ".npz; convert other vendor formats (.raw/.wiff) to mzML first."
+    )
+
+
+def save_npz(path: str | Path, data: SpectrumData) -> None:
+    arrays = dict(
+        rt=data.rt,
+        ms_level=data.ms_level,
+        isolation_lower_mz=data.isolation_lower_mz,
+        isolation_upper_mz=data.isolation_upper_mz,
+        peak_start_idx=data.peak_start_idx,
+        peak_stop_idx=data.peak_stop_idx,
+        mz=data.mz,
+        intensity=data.intensity,
+    )
+    if data.has_mobility:
+        arrays["mobility"] = data.mobility
+    np.savez_compressed(path, **arrays)
+
+
+def load_npz(path: str | Path) -> SpectrumData:
+    with np.load(path) as z:
+        return SpectrumData(**{k: z[k] for k in z.files})

@@ -23,8 +23,14 @@ def n_rows(frame: dict) -> int:
 
 
 def take(frame: dict, idx) -> dict:
-    """The rows ``idx`` (indices or a boolean mask) of every column."""
-    return {k: v[idx] for k, v in frame.items()}
+    """The rows ``idx`` (indices or a boolean mask) of every column; a
+    ``Frame`` keeps its ``attrs``, as a pandas selection does."""
+    rows = {k: v[idx] for k, v in frame.items()}
+    if not isinstance(frame, Frame):
+        return rows
+    out = Frame(rows)
+    out.attrs = dict(frame.attrs)
+    return out
 
 
 def concat(frames: list[dict]) -> dict:
@@ -42,3 +48,31 @@ def lexsort_rows(frame: dict, columns: list[str]) -> np.ndarray:
     column most significant), as pandas' ``sort_values`` on several
     columns."""
     return np.lexsort([frame[c] for c in reversed(columns)])
+
+
+def sort_rows_descending(frame: dict, columns: list[str]) -> np.ndarray:
+    """Row order of pandas' ``sort_values(columns, ascending=False)``: each
+    column's values descending, NaN last, rows that tie on every column in
+    their original order."""
+    keys = []
+    for c in reversed(columns):
+        v = np.asarray(frame[c])
+        nan = np.isnan(v) if v.dtype.kind in "fc" else np.zeros(len(v), bool)
+        uniq, code = np.unique(v[~nan], return_inverse=True)
+        rank = np.full(len(v), len(uniq), np.int64)  # NaN after every value
+        rank[~nan] = len(uniq) - 1 - code
+        keys.append(rank)
+    return np.lexsort(keys) if keys else np.arange(n_rows(frame))
+
+
+def unique_in_order(values: np.ndarray) -> np.ndarray:
+    """The distinct values in order of first appearance, as pandas'
+    ``Series.unique`` (``np.unique`` sorts them)."""
+    values = np.asarray(values)
+    _, first = np.unique(values, return_index=True)
+    return values[np.sort(first)]
+
+
+def copy_frame(frame: dict) -> dict:
+    """A deep copy, as ``DataFrame.copy()``."""
+    return {k: np.array(v, copy=True) for k, v in frame.items()}

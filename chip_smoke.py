@@ -37,7 +37,19 @@ Phases, in order; any failure exits non-zero:
    PSMs, peak memory); the classifier on the card against the CPU on a
    small world. Phase [3] records and checks the kernel launches of these
    drivers too;
-7. the ``{"kernels": [...]}`` line, then the card's name and power limit,
+7. the per-run workflow on both worlds: each run written as a ``.npz`` raw
+   file and read back through ``RawFileManager``, then
+   ``PeptideCentricWorkflow`` ``load`` -> ``search_parameter_optimization``
+   (the calibration and tolerance loop, pipelined selection and scoring and
+   an FDR fit a step) -> ``extraction``, at the port's default config; per
+   step the optimizers, their tolerances, the batch, the targets at 1% FDR
+   and the walls; the final tolerances and calibration; the kernel's
+   launches and summed device time, each pass's first launch of every step
+   and of the final extraction held against the plain version; the IDs at
+   1% FDR and the fragment m/z calibration gated against the JAX package's
+   readings; and the workflow on the card against the same workflow on the
+   CPU on the small world of the CPU tests;
+8. the ``{"kernels": [...]}`` line, then the card's name and power limit,
    then the ``{"ok": true, ...}`` line last.
 """
 
@@ -120,6 +132,28 @@ BF16_TOL = dict(
 )
 BF16_TOL_DEFAULT = 0.02
 DEVICE = "cuda"
+# phase [7], the workflow: the run's seed, and the JAX package's workflow on
+# the CPU at a quarter of each world (3 isolation windows instead of 12, the
+# same density a window, the default config): 3D identified 1.0000, false
+# 0.0367, fragment m/z calibration 0.0137 ppm from the planted bias
+# (`PYTHONPATH=. python tests/test_torch_workflow.py --peptides 1500
+# --windows 3`); 4D identified 0.9929, false 0.0206, bias 0.0076 ppm (`...
+# --peptides 6250 --windows 3 --mobility --batch-size 2000`). The 4D reading
+# scales calibration.batch_size with the world, so that the optimization
+# steps search the same share of the library as on the 4D world here (8,000
+# of 25,000 elution groups); at 8,000 they search the whole quarter world,
+# and JAX reads 1.0000 there. The 3D world's steps search the whole library
+# either way. Gates: identified at least that less 0.005; false at most
+# 0.02, or that plus 0.005 where it is higher; the bias at most that plus
+# 0.5 ppm
+WF_RANDOM_STATE = 0
+WF_IDENTIFIED_MIN = {"": 0.995, "_4d": 0.9879}
+WF_FALSE_MAX = {"": 0.0417, "_4d": 0.0256}
+WF_BIAS_MAX_PPM = {"": 0.5137, "_4d": 0.5076}
+# the workflow on the card against the CPU, on the 3D world of the CPU tests
+# (tests/torch_workflow_worlds.py)
+WF_TOL_REL = 0.05
+WF_JACCARD_MIN = 0.95
 
 
 def replaced_kernel(root: Path) -> str:
@@ -807,22 +841,16 @@ def id_shares(dia, prec, out):
     return identified, float(off.mean()) if len(off) else 0.0, len(pidx), int((accepted & ~target).sum())
 
 
-class FdrStepTimes:
-    """Host seconds of the FDR steps, each wrapped where ``perform_fdr``
-    calls it: the fit (ends when its losses reach the host), the
-    probabilities, the q-values, fragment competition and ``keep_best``."""
+class MethodTimes:
+    """Host seconds spent in the given methods, summed per key."""
+
+    def __init__(self, entries):
+        self.entries = entries
 
     def __enter__(self):
-        import alphadia_torch.fdr.fdr as fdr_mod
-        from alphadia_torch.models.classifier import BinaryClassifier
-
         self.seconds = {}
         self.saved = []
-        for obj, attr, key in (
-            (BinaryClassifier, "fit", "fit"), (BinaryClassifier, "predict_proba", "predict"),
-            (fdr_mod, "get_q_values", "q_values"), (fdr_mod.FragmentCompetition, "__call__", "fragment_competition"),
-            (fdr_mod, "keep_best", "keep_best"),
-        ):
+        for obj, attr, key in self.entries:
             fn = getattr(obj, attr)
             self.saved.append((obj, attr, fn))
 
@@ -841,6 +869,20 @@ class FdrStepTimes:
             setattr(obj, attr, fn)
 
 
+def fdr_step_times() -> MethodTimes:
+    """Host seconds of the FDR steps, each wrapped where ``perform_fdr``
+    calls it: the fit (ends when its losses reach the host), the
+    probabilities, the q-values, fragment competition and ``keep_best``."""
+    import alphadia_torch.fdr.fdr as fdr_mod
+    from alphadia_torch.models.classifier import BinaryClassifier
+
+    return MethodTimes([
+        (BinaryClassifier, "fit", "fit"), (BinaryClassifier, "predict_proba", "predict"),
+        (fdr_mod, "get_q_values", "q_values"), (fdr_mod.FragmentCompetition, "__call__", "fragment_competition"),
+        (fdr_mod, "keep_best", "keep_best"),
+    ])
+
+
 def fdr_manager(dia, device=None):
     from alphadia_torch.models.classifier import BinaryClassifier
     from alphadia_torch.workflow.managers.fdr_manager import FDRManager
@@ -857,7 +899,7 @@ def ids_at_1pct(label, tag, world, psm, frags, name, card):
     the estimator, the IDs at 1% FDR and their truth, gated."""
     dia, prec, _ = world
     mgr = fdr_manager(dia)
-    with FdrStepTimes() as st:
+    with fdr_step_times() as st:
         t0 = time.perf_counter()
         out = mgr.fit_predict(psm, decoy_strategy="precursor", competitive=True, df_fragments=frags)
         wall = time.perf_counter() - t0
@@ -1011,6 +1053,279 @@ def phase6(label, tag, world, name, card, launches, secs, spectra=None):
 
 
 # ---------------------------------------------------------------------------
+# 7. the per-run workflow
+# ---------------------------------------------------------------------------
+def pass_of(kw) -> str:
+    """The pass that made a recorded launch: scoring reads the m/z plane too."""
+    return "scoring" if kw.get("with_mz") else "selection"
+
+
+def launch_count(calls, stage, pass_name) -> int:
+    return sum(1 for st, _, kw in calls if st == stage and pass_of(kw) == pass_name)
+
+
+def kept_bytes(calls) -> int:
+    """Bytes of the recorded launches' own argument tensors (the peak store
+    and the cell index are the run's, shared by every launch)."""
+    import torch
+
+    seen = {}
+    for _, args, kw in calls:
+        for t in (*args[2:], *kw.values()):
+            if isinstance(t, torch.Tensor):
+                seen[t.data_ptr()] = t.numel() * t.element_size()
+    return sum(seen.values())
+
+
+def summed_device_ms(calls, flush) -> dict:
+    """Per pass of the workflow ((``steps`` or ``extraction``, selection or
+    scoring)) the launches, their summed device ms, each launch run again
+    alone on the card, warm (KERNEL_REPS back to back) and after an L2 flush
+    (median), and their bound in ms, as phase [5] counts it. CUDA events
+    around a launch inside the run would also count the host's time in the
+    wrapper while the card waits for it."""
+    from alphadia_torch.ops.xic_cuda import extract_xic_cuda
+
+    acc = {}
+    for stage, args, kw in calls:
+        def kernel():
+            return extract_xic_cuda(*args, **kw)
+
+        a = acc.setdefault(("steps" if stage.startswith("step") else stage, pass_of(kw)), dict.fromkeys(
+            ("launches", "ms", "flushed_ms", "bytes", "ops"), 0
+        ))
+        b, o = work(args, kw)
+        a["launches"] += 1
+        a["ms"] += device_ms(kernel, KERNEL_REPS)
+        a["flushed_ms"] += device_ms_flushed(kernel, KERNEL_REPS, flush)
+        a["bytes"] += b
+        a["ops"] += o
+    for a in acc.values():
+        a["bound_ms"] = max(a["bytes"] / HBM_BYTES_PER_S, a["ops"] / FP32_OPS_PER_S) * 1e3
+    return acc
+
+
+def workflow_config(out_dir):
+    from alphadia_torch.config import load_default_config
+
+    cfg = load_default_config()
+    cfg.update_layer(
+        {"output_directory": str(out_dir), "general": {"random_state": WF_RANDOM_STATE, "save_figures": False}},
+        name="chip_smoke",
+    )
+    return cfg
+
+
+def fragment_bias_error(wf, planted_ppm) -> float:
+    """|median ppm shift of the fitted fragment m/z calibration over the
+    library's fragments - the planted library bias|."""
+    est = wf.calibration_manager.get_estimator("fragment", "mz")
+    mz = np.asarray(wf.spectral_library.fragment_df["mz_library"], np.float64)
+    mz = mz[mz > 0]
+    return abs(float(np.median((est.function.predict(mz) - mz) / mz * 1e6)) - planted_ppm)
+
+
+def phase7(label, tag, spectra, prec, frag, name, card, launches, secs, tmp):
+    """The workflow on one world at the default config, from a ``.npz`` raw
+    file; prints the steps, the final state, the walls and the kernel's
+    launches, and gates the loop, the IDs, the calibration and the kernel's
+    first launches of every pass."""
+    import torch
+
+    from alphadia_torch.library.speclib import SpecLibFlat
+    from alphadia_torch.ops import xic_cuda
+    from alphadia_torch.rawdata import load_raw_file, save_npz
+    from alphadia_torch.testing.synthetic import SyntheticConfig
+    from alphadia_torch.workflow.peptidecentric.extraction_handler import ExtractionHandler
+    from alphadia_torch.workflow.peptidecentric.optimization_handler import OptimizationHandler
+    from alphadia_torch.workflow.peptidecentric.peptidecentric import PeptideCentricWorkflow
+
+    raw_path = tmp / f"world{tag or '_3d'}.npz"
+    save_npz(raw_path, spectra)
+    back = load_raw_file(raw_path)
+    fields = ("rt", "ms_level", "isolation_lower_mz", "isolation_upper_mz", "peak_start_idx", "peak_stop_idx", "mz", "intensity", "mobility")
+    same = all(
+        (getattr(back, f) is None and getattr(spectra, f) is None) or np.array_equal(getattr(back, f), getattr(spectra, f))
+        for f in fields
+    )
+    log(f"[7] {label}: raw file {raw_path.name} {raw_path.stat().st_size / 2**20:.1f} MiB, read back equal {same}")
+    if not same:
+        raise AssertionError(f"{label}: the raw file read back differs from the spectra written")
+
+    cfg = workflow_config(tmp / f"out{tag}")
+    n_prec = len(prec["precursor_idx"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    xic_cuda.launches = 0
+    process_batch = OptimizationHandler._process_batch
+
+    with Recorder() as rec, MethodTimes(
+        [(ExtractionHandler, "select_candidates", "selection"), (ExtractionHandler, "score_and_quantify_candidates", "scoring")]
+    ) as mt:
+        rec.stage = "load"
+        def staged(handler):
+            rec.stage = f"step{len(handler.step_log)}"
+            return process_batch(handler)
+
+        OptimizationHandler._process_batch = staged
+        try:
+            t0 = time.perf_counter()
+            wf = PeptideCentricWorkflow(f"world{tag or '_3d'}", cfg, quant_path=str(tmp / f"quant{tag}"), random_state=WF_RANDOM_STATE)
+            wf.load(str(raw_path), SpecLibFlat(prec, frag))
+            wf.search_parameter_optimization()
+            rec.stage = "extraction"
+            psm, fragments = wf.extraction()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            OptimizationHandler._process_batch = process_batch
+    n_launch = xic_cuda.launches
+    if n_launch != len(rec.calls):
+        raise AssertionError(f"{label}: {n_launch} kernel launches counted, {len(rec.calls)} wrapper calls recorded")
+    peak = torch.cuda.max_memory_allocated()
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=DEVICE)
+    per_pass = summed_device_ms(rec.calls, flush)
+    del flush
+    launches["workflow" + tag] = n_launch
+    secs["workflow" + tag] = wall
+    timings = {k: v.get("duration", float("nan")) for k, v in wf.timing_manager.timings.items()}
+    handler = wf.optimization_handler
+    om = wf.optimization_manager
+    log(
+        f"[7] {label} workflow: {n_prec} precursors; wall {wall:.4f} s: load {timings['load']:.4f} s, optimization "
+        f"{timings['optimization']:.4f} s ({len(handler.step_log)} steps), extraction {timings['extraction']:.4f} s "
+        f"(selection {mt.seconds.get('selection', 0.0):.4f} s, scoring {mt.seconds.get('scoring', 0.0):.4f} s: "
+        f"{n_prec / (mt.seconds.get('selection', 0.0) + mt.seconds.get('scoring', 0.0)):.1f} precursors/s; "
+        f"{n_prec / timings['extraction']:.1f} precursors/s with the FDR fit); max_memory_allocated "
+        f"{peak / 2**30:.3f} GiB (of which {kept_bytes(rec.calls) / 2**30:.3f} GiB the recorded launches' arguments) "
+        f"({name}, {card})"
+    )
+    for i, st in enumerate(handler.step_log):
+        moves = ", ".join(f"{k} {st['before'][k]:.4f} -> {st['after'][k]:.4f}" for k in st["optimizers"])
+        log(
+            f"[7] {label} step {i}: {moves}; elution groups {st['elution_groups'][0]}-{st['elution_groups'][1]} "
+            f"({st['precursors']} precursors), {st['targets_at_1pct']} targets at 1% FDR, classifier version "
+            f"{st['classifier_version']}; wall {st['wall']:.4f} s: extraction {st['extraction_wall']:.4f} s, FDR fit "
+            f"{st['fdr_wall']:.4f} s, the rest {st['wall'] - st['extraction_wall'] - st['fdr_wall']:.4f} s; "
+            f"kernel launches {launch_count(rec.calls, f'step{i}', 'selection')} + "
+            f"{launch_count(rec.calls, f'step{i}', 'scoring')}"
+            f"{'; converged ' + ', '.join(st['converged']) if st['converged'] else ''}"
+        )
+    steps_wall = sum(st["wall"] for st in handler.step_log)
+    ext = sum(st["extraction_wall"] for st in handler.step_log)
+    fit = sum(st["fdr_wall"] for st in handler.step_log)
+    final_search = mt.seconds.get("selection", 0.0) + mt.seconds.get("scoring", 0.0)
+    log(
+        f"[7] {label} where the wall goes: the steps {steps_wall:.4f} s of the optimization's "
+        f"{timings['optimization']:.4f} s: extraction {ext:.4f} s ({ext / steps_wall:.3f}), FDR fit {fit:.4f} s "
+        f"({fit / steps_wall:.3f}), the rest {steps_wall - ext - fit:.4f} s ({(steps_wall - ext - fit) / steps_wall:.3f}); "
+        f"the final extraction {timings['extraction']:.4f} s: selection and scoring {final_search:.4f} s, the FDR and "
+        f"the rest {timings['extraction'] - final_search:.4f} s ({name}, {card})"
+    )
+    log(
+        f"[7] {label} final: " + ", ".join(f"{k} {float(getattr(om, k)):.4f}" for k in ("ms1_error", "ms2_error", "rt_error", "mobility_error"))
+        + f", score_cutoff {float(om.score_cutoff):.4f}, fwhm_rt {float(om.fwhm_rt):.4f}, fwhm_mobility "
+        f"{float(om.fwhm_mobility):.4g}, quad_sigma {tuple(round(float(v), 4) for v in om.quad_sigma)}, quad_delta_mu "
+        f"{tuple(round(float(v), 4) for v in om.quad_delta_mu)}, classifier version {om.classifier_version}"
+    )
+    for group, ests in wf.calibration_manager.groups.items():
+        for est_name, est in ests.items():
+            m = est.metrics or {}
+            log(
+                f"[7] {label} calibration {group}.{est_name}: fitted {est.is_fitted}, median accuracy "
+                f"{m.get('median_accuracy', float('nan')):.4g}, median precision {m.get('median_precision', float('nan')):.4g}"
+            )
+    for (stage, pass_name), a in sorted(per_pass.items()):
+        log(
+            f"[7] {label} kernel, {stage} {pass_name}: {a['launches']} launches, {a['ms']:.4f} ms warm "
+            f"({a['bound_ms'] / a['ms']:.2f} of bound), L2 flushed {a['flushed_ms']:.4f} ms, bound {a['bound_ms']:.4f} ms "
+            f"({a['bytes'] / 1e6:.2f} MB) ({name}, {card})"
+        )
+    kernel_ms = sum(a["ms"] for a in per_pass.values())
+    bound_ms = sum(a["bound_ms"] for a in per_pass.values())
+    log(
+        f"[7] {label} kernel: {n_launch} launches in the workflow, summed device time {kernel_ms:.4f} ms warm "
+        f"({bound_ms / kernel_ms:.2f} of bound), {sum(a['flushed_ms'] for a in per_pass.values()):.4f} ms L2 flushed, "
+        f"bound {bound_ms:.4f} ms (each launch run again alone on the card after the workflow); "
+        f"{kernel_ms / (wall * 1e3):.5f} of the workflow's wall ({name}, {card})"
+    )
+
+    # the loop ended: the targeted optimizers at their targets, every
+    # optimizer converged or the insufficient-precursors branch named
+    groups = handler.ordered_optimizers
+    not_converged = [o.parameter_name for g in groups for o in g if not o.has_converged]
+    if not_converged:
+        log(
+            f"[7] {label}: not converged within calibration.max_steps {cfg['calibration']['max_steps']}: "
+            f"{not_converged}; insufficient precursors {handler.insufficient_precursors}"
+        )
+        if not handler.insufficient_precursors:
+            raise AssertionError(f"{label}: optimizers {not_converged} did not converge")
+    for g in groups:
+        for o in g:
+            target = getattr(o, "target_parameter", None)
+            if target is not None and abs(float(getattr(om, o.parameter_name)) - target) > 1e-9 * max(abs(target), 1):
+                raise AssertionError(f"{label}: {o.parameter_name} did not reach its target {target}")
+
+    identified, false, n_t, n_d = id_shares(wf.dia_data, prec, psm)
+    bias = fragment_bias_error(wf, SyntheticConfig().lib_ppm_bias)
+    log(
+        f"[7] {label} IDs at 1% FDR: {n_t} targets, {n_d} decoys, {len(fragments['precursor_idx'])} fragments; "
+        f"identified share {identified:.4f} (bound {WF_IDENTIFIED_MIN[tag]}); realised false share {false:.4f} "
+        f"(bound {WF_FALSE_MAX[tag]}); fragment m/z calibration {bias:.4f} ppm from the planted bias (bound "
+        f"{WF_BIAS_MAX_PPM[tag]}) ({name}, {card})"
+    )
+    if identified < WF_IDENTIFIED_MIN[tag] or false > WF_FALSE_MAX[tag]:
+        raise AssertionError(f"{label}: the workflow's IDs at 1% FDR miss their gates")
+    if bias > WF_BIAS_MAX_PPM[tag]:
+        raise AssertionError(f"{label}: the fragment m/z calibration misses the planted bias")
+
+    # each pass's first launch of every step and of the final extraction
+    first = {}
+    for stage, args, kw in rec.calls:
+        first.setdefault((stage, pass_of(kw)), (args, kw))
+    stages = {st for st, _ in first}
+    if "extraction" not in stages or not any(st.startswith("step") for st in stages):
+        raise AssertionError(f"{label}: the workflow launched the kernel in no step or not in the final extraction")
+    worst = [0.0, 0.0]
+    for (stage, pass_name), (args, kw) in sorted(first.items()):
+        res = compare(args, kw)
+        B, Q = args[2].shape
+        for plane, (mabs, mrel, bad, total) in zip(("intensity", "mz"), res):
+            log(
+                f"[7] {label} {stage:10s} {pass_name:9s} {variant(kw):13s} B={B} Q={Q} W={kw['window_len']} "
+                f"{plane:9s} max_abs={mabs:.3g} max_rel={mrel:.3g} outside_tol={bad}"
+            )
+            if bad:
+                raise AssertionError(f"{label}: kernel disagrees with the plain version: {stage} {pass_name} {plane}")
+            worst = [max(worst[0], mabs), max(worst[1], mrel)]
+    return worst
+
+
+def workflow_card_vs_cpu(root, tmp, name, card):
+    """The workflow on the small 3D world of the CPU tests, on the card and
+    on the CPU: the same steps per optimizer, tolerances within
+    WF_TOL_REL, target IDs at 1% with a Jaccard overlap >= WF_JACCARD_MIN."""
+    sys.path.insert(0, str(root / "tests"))
+    from torch_workflow_worlds import compare_runs, run_port
+
+    runs = {}
+    for device in (DEVICE, "cpu"):
+        path = tmp / f"small_{device}"
+        path.mkdir()
+        runs[device] = run_port(path, "3d", device, random_state=WF_RANDOM_STATE)
+    cmp = compare_runs(runs[DEVICE][:2], runs["cpu"][:2])
+    log(
+        f"[7] workflow, card vs CPU on the small 3D world: steps {cmp['steps'][0]} / {cmp['steps'][1]}; largest "
+        f"tolerance difference {cmp['tolerance_rel']:.4g} (bound {WF_TOL_REL}); IDs at 1% {cmp['ids'][0]} / "
+        f"{cmp['ids'][1]}, Jaccard {cmp['jaccard']:.4f} (bound {WF_JACCARD_MIN}); walls card "
+        f"{runs[DEVICE][0].wall:.4f} s, CPU {runs['cpu'][0].wall:.4f} s ({name}, {card})"
+    )
+    if cmp["steps"][0] != cmp["steps"][1] or cmp["tolerance_rel"] > WF_TOL_REL or cmp["jaccard"] < WF_JACCARD_MIN:
+        raise AssertionError("the workflow on the card disagrees with the workflow on the CPU")
+
+
+# ---------------------------------------------------------------------------
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true", help="also trace one pass of each path")
@@ -1147,7 +1462,19 @@ def main(argv=None) -> int:
     phase6("4D", "_4d", worlds["_4d"], name, card, launches, secs, spectra=spectra["_4d"])
     log(f"[6] kernel launches per run: {json.dumps(launches)} ({name}, {card})")
 
-    # ---- 7. summary lines ---------------------------------------------------
+    # ---- 7. the per-run workflow --------------------------------------------
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        workflow_card_vs_cpu(root, tmp, name, card)
+        for label, tag in (("3D", ""), ("4D", "_4d")):
+            _, prec, frag = worlds[tag]
+            w = phase7(label, tag, spectra[tag], prec, frag, name, card, launches, secs, tmp)
+            max_abs_err = max(max_abs_err, w[0])
+    log(f"[7] kernel launches per run: {json.dumps(launches)} ({name}, {card})")
+
+    # ---- 8. summary lines ---------------------------------------------------
     kernels = {
         "kernels": [
             {

@@ -5,8 +5,9 @@ from 16 to 1024, Q of 1, 3 and 24), on the edges of ``torch_xic_edges``
 and on the launches that a 4D scoring pass makes; the plain 4D
 extraction rerun on the card, which must give the same bits; the
 pipelined extraction against sequential selection and scoring, both
-enqueuing every batch before they wait for any, and classifier fits on
-the card (one held to a fit on the CPU).
+enqueuing every batch before they wait for any, classifier fits on the
+card (one held to a fit on the CPU), and the per-run workflow (load ->
+optimization -> extraction) on the card held to the same run on the CPU.
 
 Marked ``gpu``: each test skips where no CUDA card is present, and the
 decision is taken inside the test. On the card the file needs neither JAX
@@ -430,3 +431,18 @@ def test_classifier_fit_on_card_matches_the_cpu(card):
             for name, a in arrays.items():
                 np.testing.assert_allclose(got[group][layer][name], a, rtol=1e-3, atol=1e-4, err_msg=f"{layer}/{name}")
     np.testing.assert_allclose(fits["card"].metrics["train_loss"], fits["cpu"].metrics["train_loss"], rtol=1e-3, atol=1e-4)
+
+
+def test_workflow_on_card_matches_the_cpu(card, tmp_path):
+    """The per-run workflow on the small 3D world of the CPU tests, on the
+    card and on the CPU: the same steps per optimizer, the final tolerances
+    within 5%, the target IDs at 1% FDR with a Jaccard overlap >= 0.95."""
+    from torch_workflow_worlds import compare_runs, run_port
+
+    on_card = run_port(tmp_path, "3d", "cuda")
+    on_cpu = run_port(tmp_path, "3d", "cpu")
+    assert on_card[0].device.type == "cuda"
+    cmp = compare_runs(on_card[:2], on_cpu[:2])
+    assert cmp["steps"][0] == cmp["steps"][1]
+    assert cmp["tolerance_rel"] <= 0.05
+    assert cmp["jaccard"] >= 0.95 and cmp["ids"][1] > 100

@@ -1,6 +1,7 @@
 """The port imports without JAX, the JAX package, pandas or the other
-packages the card machine lacks (scikit-learn, xxhash, matplotlib, yaml),
-and its entry points refuse to run on a missing card unless the CPU is asked for."""
+packages it does not depend on (scikit-learn, xxhash, matplotlib, yaml,
+h5py, lxml, zstandard), and its entry points refuse to run on a missing
+card unless the CPU is asked for."""
 
 import subprocess
 import sys
@@ -17,7 +18,7 @@ _BLOCKED_IMPORT = """
 import importlib.abc, sys
 BLOCKED = (
     "jax", "jaxlib", "flax", "optax", "alphadia_tpu", "pandas",
-    "sklearn", "xxhash", "matplotlib", "yaml",
+    "sklearn", "xxhash", "matplotlib", "yaml", "h5py", "lxml", "zstandard",
 )
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
@@ -49,6 +50,29 @@ import alphadia_torch.models.classifier
 import alphadia_torch.workflow.managers.base
 import alphadia_torch.workflow.managers.fdr_manager
 import alphadia_torch.workflow.peptidecentric.peptidecentric
+import alphadia_torch.exceptions
+import alphadia_torch.constants.keys
+import alphadia_torch.config
+import alphadia_torch.reporting
+import alphadia_torch.rawdata.source
+import alphadia_torch.calibration
+import alphadia_torch.library.speclib
+import alphadia_torch.search.quadrupole
+import alphadia_torch.workflow.base
+import alphadia_torch.workflow.managers.calibration_manager
+import alphadia_torch.workflow.managers.optimization_manager
+import alphadia_torch.workflow.managers.raw_file_manager
+import alphadia_torch.workflow.managers.timing_manager
+import alphadia_torch.workflow.optimizers.automatic
+import alphadia_torch.workflow.optimizers.optimization_lock
+import alphadia_torch.workflow.optimizers.targeted
+import alphadia_torch.workflow.peptidecentric.column_name_handler
+import alphadia_torch.workflow.peptidecentric.extraction_handler
+import alphadia_torch.workflow.peptidecentric.library_init
+import alphadia_torch.workflow.peptidecentric.optimization_handler
+import alphadia_torch.workflow.peptidecentric.recalibration_handler
+cfg = alphadia_torch.config.load_default_config()
+assert cfg["tpu"]["gather_slab"] == 256
 loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not loaded, loaded
 print("ok")
@@ -85,9 +109,10 @@ def test_default_device_raises_without_cuda():
     assert resolve_device("cpu").type == "cpu"
 
 
-def test_fdr_and_driver_entry_points_default_to_the_card():
-    """The pipelined and RT-windowed drivers, the classifier and the FDR
-    manager take ``device=None`` as the card and raise without one."""
+def test_fdr_and_driver_entry_points_default_to_the_card(tmp_path):
+    """The pipelined and RT-windowed drivers, the classifier, the FDR
+    manager, the workflow and its extraction handler take ``device=None`` as
+    the card and raise without one."""
     from alphadia_torch.models.classifier import BinaryClassifier
     from alphadia_torch.rawdata import DiaData
     from alphadia_torch.search.pipelined import PipelinedExtraction
@@ -96,9 +121,15 @@ def test_fdr_and_driver_entry_points_default_to_the_card():
 
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: device=None resolves to it")
+    from alphadia_torch.config import load_default_config
+    from alphadia_torch.workflow.peptidecentric.extraction_handler import ExtractionHandler
+    from alphadia_torch.workflow.peptidecentric.peptidecentric import PeptideCentricWorkflow
+
     for make in (
         lambda: BinaryClassifier(),
         lambda: FDRManager(["a"]),
+        lambda: PeptideCentricWorkflow("run", load_default_config(), quant_path=str(tmp_path)),
+        lambda: ExtractionHandler(load_default_config(), None, None),
         lambda: PipelinedExtraction(DiaData.__new__(DiaData), {}, {}),
         lambda: RtWindowedSearch(None, {}, {}),
     ):

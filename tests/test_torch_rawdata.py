@@ -154,3 +154,38 @@ def test_batch_helpers_match(n, cap):
     assert ours.effective_batch(cap, n) == theirs.effective_batch(cap, n)
     assert ours.bucket_window(n) == theirs.bucket_window(n)
     assert ours.bucket_count(n) == theirs.bucket_count(n)
+
+
+def test_npz_raw_file_round_trip(tmp_path):
+    """A raw file the JAX package writes reads back in the port as the same
+    spectra (and the port's own ``save_npz`` as well), through
+    ``RawFileManager`` into a ``DiaData`` equal to the JAX package's, with
+    the same RT range."""
+    from alphadia_torch.rawdata import load_raw_file, save_npz
+    from alphadia_torch.workflow.managers.raw_file_manager import RawFileManager
+    from alphadia_tpu.rawdata.source import load_raw_file as jax_load_raw_file
+    from alphadia_tpu.rawdata.source import save_npz as jax_save_npz
+
+    (ours, _, _), (theirs, _, _) = _worlds(3, with_mobility=True)
+    jax_save_npz(tmp_path / "jax.npz", theirs)
+    save_npz(tmp_path / "port.npz", ours)
+    for name in ("jax.npz", "port.npz"):
+        back, ref = load_raw_file(tmp_path / name), jax_load_raw_file(tmp_path / "jax.npz")
+        for f in _SPECTRA_FIELDS:
+            np.testing.assert_array_equal(getattr(back, f), getattr(ref, f), err_msg=f)
+            np.testing.assert_array_equal(getattr(back, f), getattr(theirs, f), err_msg=f)
+    manager = RawFileManager({"general": {"thread_count": 1}, "tpu": {"coarse_bin_width": 1.0, "n_scan_bins": 8}})
+    dia = manager.get_dia_data_object(str(tmp_path / "port.npz"))
+    jd = JaxDiaData.from_spectra(theirs, n_scan_bins=8, use_native=False)
+    assert (dia.rt_min, dia.rt_max) == (jd.rt_min, jd.rt_max)
+    np.testing.assert_array_equal(dia.cell_start, jd.cell_start)
+    np.testing.assert_array_equal(dia.peak_mz, jd.peak_mz)
+    assert manager.stats["n_cycles"] == jd.n_cycles and manager.stats["has_mobility"]
+
+
+@pytest.mark.parametrize("name", ["run.mzML", "run.mzml.gz", "run.hdf", "run.d", "run.raw"])
+def test_raw_formats_without_a_reader_raise(tmp_path, name):
+    from alphadia_torch.rawdata import load_raw_file
+
+    with pytest.raises(ValueError, match="not read yet" if not name.endswith(".raw") else "Unsupported"):
+        load_raw_file(tmp_path / name)
