@@ -11,6 +11,8 @@
   ignored.
 - Each layer is remembered by name, so the effective config prints with
   its provenance.
+- ``to_yaml`` freezes the effective config (``frozen_config.yaml``) through
+  the emitter of ``yaml_subset``; ``yaml.safe_load`` reads it back equal.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from collections import UserDict
 from pathlib import Path
 from typing import Any
 
+from alphadia_torch.config import yaml_subset
 from alphadia_torch.exceptions import KeyAddedConfigError, TypeMismatchConfigError
 
 logger = logging.getLogger(__name__)
@@ -96,6 +99,9 @@ class Config(UserDict):
     @classmethod
     def from_json(cls, text: str, name: str = "json") -> "Config":
         return cls(json.loads(text), name=name)
+
+    def to_yaml(self, path: str | Path) -> None:
+        Path(path).write_text(yaml_subset.dump(self.data), encoding="utf-8")
 
     def update_layer(self, patch: dict | "Config", name: str = "update") -> None:
         """Apply one configuration layer; strict keys and types."""

@@ -23,3 +23,9 @@ class CalibCols(metaclass=ConstantsClass):
     MOBILITY_OBSERVED = "mobility_observed"
     MOBILITY_LIBRARY = "mobility_library"
     MOBILITY_CALIBRATED = "mobility_calibrated"
+
+
+class SearchStepFiles(metaclass=ConstantsClass):
+    PSM_FILE_NAME = "psm.parquet"
+    FRAG_FILE_NAME = "frag.parquet"
+    FRAG_TRANSFER_FILE_NAME = "frag.transfer.parquet"

@@ -108,3 +108,9 @@ class TypeMismatchConfigError(ConfigError):
 
 class GenericUserError(UserError):
     _error_code = "GENERIC_USER_ERROR"
+
+
+class NotPortedError(UserError):
+    """A setting or input whose code comes with a later slice of the port."""
+
+    _error_code = "NOT_PORTED"

@@ -37,7 +37,9 @@ def balanced_logistic_proba(x: np.ndarray, y: np.ndarray, C: float = 1.0, tol: f
     the same objective, ``0.5 |w|^2 + C sum_i s_i logloss_i`` with class
     weights ``s = n / (2 n_c)`` and an unpenalised intercept, scaled as
     scikit-learn scales it (by the weights' sum), and the same L-BFGS-B
-    settings from zeros."""
+    settings from zeros. Like scikit-learn's, the probabilities come out in
+    the features' dtype (float32 for float32 features, else float64)."""
+    dtype = np.float32 if np.asarray(x).dtype == np.float32 else np.float64
     x = np.asarray(x, np.float64)
     y = np.asarray(y, np.float64)
     classes, inverse, counts = np.unique(y, return_inverse=True, return_counts=True)
@@ -57,7 +59,8 @@ def balanced_logistic_proba(x: np.ndarray, y: np.ndarray, C: float = 1.0, tol: f
         loss_grad, np.zeros(x.shape[1] + 1), method="L-BFGS-B", jac=True,
         options={"maxiter": max_iter, "maxls": 50, "gtol": tol, "ftol": 64 * np.finfo(float).eps},
     )
-    return expit(x @ res.x[:-1] + res.x[-1])
+    coef = res.x.astype(dtype)
+    return expit(x.astype(dtype) @ coef[:-1] + coef[-1])
 
 
 def _dropna(df: dict, columns: list[str]) -> dict:

@@ -1,16 +1,148 @@
-"""The flat spectral library, the search's input: a precursor and a
-fragment column dict. ``flat_frag_start_idx`` / ``flat_frag_stop_idx`` of a
-precursor delimit its fragment rows.
+"""Spectral library containers.
 
-Only the container is ported here; the loaders, HDF I/O and hashing come
-with the library slice of the port."""
+- ``SpecLibBase``, the hierarchical library: a precursor column dict and
+  fragment matrices, one row per cleavage site of each precursor
+  (``frag_start_idx`` / ``frag_stop_idx`` delimit a precursor's rows) and
+  one column per charged fragment type (``charged_frag_types``, e.g.
+  ``b_z1`` / ``y_z2``). The matrices are 2-D float32 numpy arrays.
+- ``SpecLibFlat``, the search's input: a precursor and a fragment column
+  dict; ``flat_frag_start_idx`` / ``flat_frag_stop_idx`` of a precursor
+  delimit its fragment rows (mz_library f32, intensity f32, cardinality u8,
+  type u8 (ASCII of the series letter), loss_type u8, charge u8, number u8,
+  position u8).
+
+The JAX package's ``library/speclib.py`` with column dicts for its pandas
+frames. Libraries in HDF come with the HDF slice of the port.
+"""
 
 from __future__ import annotations
 
-from alphadia_torch.utils.frame import copy_frame, n_rows
+import numpy as np
+
+from alphadia_torch.library import chem
+from alphadia_torch.utils.frame import concat, copy_frame, n_rows
+from alphadia_torch.utils.hashing import xxh64
+
+_HASH_MASK = 0x7FFF_FFFF_FFFF_FFFF
+
+
+def str_col(df: dict, name: str):
+    """A column as an iterable of strings, or ``""`` a row where absent."""
+    return df[name] if name in df else [""] * n_rows(df)
+
+
+def mod_seq_hash(sequence, mods) -> np.ndarray:
+    """63-bit xxHash64 of each modified sequence, ``"{seq}|{mods}"``."""
+    return np.array([xxh64(f"{s}|{m or ''}".encode()) & _HASH_MASK for s, m in zip(sequence, mods)], dtype=np.int64)
+
+
+def mod_seq_charge_hash(sequence, mods, charge) -> np.ndarray:
+    """63-bit xxHash64 of each ``"{seq}|{mods}|{charge}"``."""
+    return np.array(
+        [xxh64(f"{s}|{m or ''}|{int(c)}".encode()) & _HASH_MASK for s, m, c in zip(sequence, mods, charge)],
+        dtype=np.int64,
+    )
+
+
+def _seq_len(sequences) -> np.ndarray:
+    return np.array([len(s) for s in sequences], dtype=np.int64)
+
+
+class SpecLibBase:
+    """Hierarchical spectral library: precursor columns + fragment matrices."""
+
+    def __init__(
+        self,
+        precursor_df: dict,
+        fragment_mz: np.ndarray | None = None,
+        fragment_intensity: np.ndarray | None = None,
+        charged_frag_types: list[str] | None = None,
+    ):
+        self.precursor_df = precursor_df
+        self.fragment_mz = fragment_mz
+        self.fragment_intensity = fragment_intensity
+        self.charged_frag_types = list(charged_frag_types or [])
+
+    def calc_precursor_mz(self) -> None:
+        df = self.precursor_df
+        df["precursor_mz"] = np.array(
+            [
+                chem.precursor_mz(s, int(z), m, ms)
+                for s, z, m, ms in zip(df["sequence"], df["charge"], str_col(df, "mods"), str_col(df, "mod_sites"))
+            ],
+            dtype=np.float32,
+        )
+
+    def calc_fragment_mz(self, max_charge: int = 2, types: tuple = ("b", "y")) -> None:
+        """(Re)compute the fragment m/z matrix from the sequences.
+
+        An existing intensity matrix is first laid out anew in the same way:
+        precursor rows may have been reordered or subset since it was
+        written, and the old layout would pair a precursor with another
+        one's intensities.
+        """
+        df = self.precursor_df
+        naa = _seq_len(df["sequence"])
+        rows = int((naa - 1).sum())
+        cols = [f"{t}_z{z}" for t in types for z in range(1, max_charge + 1)]
+        mz = np.zeros((rows, len(cols)), dtype=np.float32)
+        start = np.zeros(len(naa), dtype=np.int64)
+        np.cumsum(naa[:-1] - 1, out=start[1:])
+
+        if self.fragment_intensity is not None and "frag_start_idx" in df:
+            old_start = df["frag_start_idx"].astype(np.int64)
+            if not np.array_equal(old_start, start):
+                counts = naa - 1
+                src = np.repeat(old_start, counts) + np.arange(rows, dtype=np.int64) - np.repeat(start, counts)
+                self.fragment_intensity = self.fragment_intensity[src]
+
+        for i, (s, m, ms) in enumerate(zip(df["sequence"], str_col(df, "mods"), str_col(df, "mod_sites"))):
+            ladders = chem.fragment_mz_arrays(s, m, ms, max_charge=max_charge, types=types)
+            a = start[i]
+            for j, c in enumerate(cols):
+                mz[a : a + len(s) - 1, j] = ladders[c]
+        self.fragment_mz = mz
+        self.charged_frag_types = cols
+        df["frag_start_idx"] = start.astype(np.uint32)
+        df["frag_stop_idx"] = (start + naa - 1).astype(np.uint32)
+        df["nAA"] = naa.astype(np.uint8)
+
+    def hash_precursors(self) -> None:
+        df = self.precursor_df
+        mods = str_col(df, "mods")
+        df["mod_seq_hash"] = mod_seq_hash(df["sequence"], mods)
+        df["mod_seq_charge_hash"] = mod_seq_charge_hash(df["sequence"], mods, df["charge"])
+
+    def calc_isotopes(self, n_isotopes: int = 4) -> None:
+        df = self.precursor_df
+        comp = chem.peptide_compositions(list(df["sequence"]), list(df["mods"]) if "mods" in df else None)
+        env = chem.isotope_envelopes(comp, k_max=n_isotopes)
+        for k in range(n_isotopes):
+            df[f"i_{k}"] = env[:, k]
+
+    def append(self, other: "SpecLibBase") -> None:
+        """Rows of ``other`` after this library's (fragment rows offset)."""
+        offset = len(self.fragment_mz) if self.fragment_mz is not None else 0
+        other_prec = copy_frame(other.precursor_df)
+        other_prec["frag_start_idx"] = other_prec["frag_start_idx"] + offset
+        other_prec["frag_stop_idx"] = other_prec["frag_stop_idx"] + offset
+        self.precursor_df = concat([self.precursor_df, other_prec])
+        self.fragment_mz = np.concatenate([self.fragment_mz, other.fragment_mz])
+        if self.fragment_intensity is not None and other.fragment_intensity is not None:
+            self.fragment_intensity = np.concatenate([self.fragment_intensity, other.fragment_intensity])
+
+    def copy(self) -> "SpecLibBase":
+        return SpecLibBase(
+            copy_frame(self.precursor_df),
+            None if self.fragment_mz is None else self.fragment_mz.copy(),
+            None if self.fragment_intensity is None else self.fragment_intensity.copy(),
+            self.charged_frag_types,
+        )
 
 
 class SpecLibFlat:
+    """Flat spectral library, the search's input."""
+
     def __init__(self, precursor_df: dict, fragment_df: dict):
         self.precursor_df = precursor_df
         self.fragment_df = fragment_df

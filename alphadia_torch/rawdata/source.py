@@ -70,33 +70,39 @@ class SpectrumData:
         )
 
 
-# the readers of these formats come with a later slice of the port
-# (ROADMAP queue 1, item 3: the readers)
+# formats whose readers come with a later slice of the port: each needs a
+# decoder the card machine lacks (zstd frames for Bruker TDF, HDF5 for
+# alphaRaw files)
 _LATER_READERS = {
-    ".mzml": "mzML (XML)",
-    ".hdf": "alphaRaw HDF",
-    ".hdf5": "alphaRaw HDF",
-    ".h5": "alphaRaw HDF",
-    ".d": "Bruker TDF",
+    ".hdf": "alphaRaw HDF (needs an HDF5 reader)",
+    ".hdf5": "alphaRaw HDF (needs an HDF5 reader)",
+    ".h5": "alphaRaw HDF (needs an HDF5 reader)",
+    ".d": "Bruker TDF (needs a zstd frame decoder)",
 }
+SUPPORTED = ".mzML, .mzML.gz, .npz"
 
 
 def load_raw_file(path: str | Path, thread_count: int = 4) -> SpectrumData:
-    """Read a raw file by its extension. ``.npz`` (``save_npz``) is read
-    here; ``.mzML`` (plain or gzipped), ``.hdf`` and ``.d`` raise until the
-    slice that ports their readers; other formats raise as unsupported."""
+    """Read a raw file by its extension: ``.mzML`` (plain or gzipped) and
+    ``.npz`` (``save_npz``). ``.hdf`` and ``.d`` raise until the slice that
+    ports their readers; other formats raise as unsupported."""
     path = Path(path)
-    suffix = ".mzml" if path.name.lower().endswith(".mzml.gz") else path.suffix.lower()
+    name = path.name.lower()
+    suffix = path.suffix.lower()
+    if suffix == ".mzml" or name.endswith(".mzml.gz"):
+        from alphadia_torch.rawdata.mzml import read_mzml
+
+        return read_mzml(path, thread_count=thread_count)
     if suffix == ".npz":
         return load_npz(path)
     if suffix in _LATER_READERS:
         raise ValueError(
-            f"{_LATER_READERS[suffix]} files ({path.name}) are not read yet: their reader comes with the "
-            "readers' slice of the port (ROADMAP queue 1, item 3). Supported now: .npz"
+            f"{_LATER_READERS[suffix]} files ({path.name}) are not read yet: their reader comes with a later "
+            f"slice of the port (ROADMAP queue 1, the .d and .hdf readers). Supported now: {SUPPORTED}"
         )
     raise ValueError(
-        f"Unsupported raw file format '{suffix}' ({path}). Supported: .mzML, .hdf (alphaRaw), .d (Bruker TDF), "
-        ".npz; convert other vendor formats (.raw/.wiff) to mzML first."
+        f"Unsupported raw file format '{suffix}' ({path}). Supported: {SUPPORTED}; convert other vendor "
+        "formats (.raw/.wiff) to mzML first."
     )
 
 

@@ -1,0 +1,185 @@
+"""One search step: the config layers, the library, the per-raw-file loop.
+
+    SearchStep(output_folder, config={"library_path": "lib.tsv", "raw_paths": ["run.mzML"]}).run()
+
+- the config: the packaged defaults < ``config`` < ``cli_config`` <
+  ``extra_config`` (multistep extras), frozen to ``frozen_config.yaml``;
+- the library: a TSV/CSV transition list through the harmonize steps,
+  decoys and flattening (``load_library``);
+- each raw file (``.mzML``, ``.mzML.gz``, ``.npz``): ``PeptideCentricWorkflow``
+  ``load`` -> ``search_parameter_optimization`` -> ``extraction`` on the
+  card (``device=None``) or where ``device`` says, then
+  ``quant/<run>/psm.parquet`` and ``frag.parquet``; ``reuse_quant`` skips a
+  run whose ``psm.parquet`` exists, errors are collected per run unless
+  ``general.fail_fast``.
+
+``run()`` ends after the per-run files: the cross-run aggregation
+(``SearchPlanOutput``: precursor, protein and quant tables across runs)
+comes with the next slice of the port. Settings whose code comes with a
+later slice raise ``NotPortedError`` naming it, before any work: several
+hosts, ``general.profile_directory``, ``transfer_library.enabled``,
+``library_multiplexing.enabled``, a library that needs prediction,
+``general.save_library`` / ``save_flat_library`` (HDF).
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import traceback
+from pathlib import Path
+
+import numpy as np
+
+from alphadia_torch.config import load_default_config
+from alphadia_torch.constants.keys import SearchStepFiles
+from alphadia_torch.exceptions import CustomError, NoLibraryAvailableError, NotPortedError
+from alphadia_torch.library import chem
+from alphadia_torch.library.decoy import DecoyGenerator
+from alphadia_torch.library.flatten import FlattenLibrary, InitFlatColumns, LogFlatLibraryStats
+from alphadia_torch.library.harmonize import AnnotateFasta, IsotopeGenerator, PrecursorInitializer, RTNormalization
+from alphadia_torch.library.loader import DynamicLoader
+from alphadia_torch.library.pipeline import ProcessingPipeline
+from alphadia_torch.library.speclib import SpecLibFlat
+from alphadia_torch.reporting import PROGRESS, init_logging
+from alphadia_torch.utils.device import resolve_device
+from alphadia_torch.utils.parquet import write_parquet
+from alphadia_torch.workflow.base import QUANT_FOLDER_NAME
+from alphadia_torch.workflow.peptidecentric.peptidecentric import PeptideCentricWorkflow
+
+logger = logging.getLogger(__name__)
+
+
+class SearchStep:
+    def __init__(
+        self,
+        output_folder: str,
+        config: dict | None = None,
+        cli_config: dict | None = None,
+        extra_config: dict | None = None,
+        device=None,
+    ):
+        # the card unless the CPU is asked for; raises without a card
+        self.device = resolve_device(device)
+        self.output_folder = Path(output_folder)
+        self.output_folder.mkdir(parents=True, exist_ok=True)
+
+        self.config = load_default_config()
+        self.config.update_layers([("user", config or {}), ("cli", cli_config or {}), ("multistep", extra_config or {})])
+        init_logging(self.output_folder, log_level=self.config["general"]["log_level"])
+        if not self.config["output_directory"]:
+            self.config["output_directory"] = str(self.output_folder)
+        self.config.to_yaml(self.output_folder / "frozen_config.yaml")
+
+        # user-defined modifications (multiplex decoy channels and the like)
+        for mod in self.config["custom_modifications"] or []:
+            try:
+                chem.register_custom_modification(mod["name"], mod["composition"])
+            except Exception as e:
+                logger.warning("custom modification %s: %s", mod.get("name"), e)
+
+        # the per-file seeds: one generator for the step, drawn once a raw file
+        seed = self.config["general"]["random_state"]
+        if seed == -1:
+            seed = int(np.random.default_rng().integers(0, 2**31))
+            logger.info("Generated random state %d", seed)
+        self._np_rng = np.random.default_rng(seed)
+
+        self.spectral_library: SpecLibFlat | None = None
+        self.errors: list[tuple[str, str]] = []
+
+    def _refuse_later_slices(self) -> None:
+        general = self.config["general"]
+        if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+            raise NotPortedError(
+                "searching on several hosts or cards comes with the multi-GPU slice of the port (ROADMAP queue 1)"
+            )
+        if general.get("profile_directory"):
+            raise NotPortedError(
+                "general.profile_directory: the per-file profiler trace comes with the profiling slice of the port "
+                "(ROADMAP queue 1)"
+            )
+        if self.config["transfer_library"]["enabled"]:
+            raise NotPortedError(
+                "transfer_library.enabled: the transfer requantification comes with the requant slice of the port "
+                "(ROADMAP queue 1)"
+            )
+
+    def load_library(self) -> SpecLibFlat:
+        """The flat library: a transition list, harmonized, with decoys,
+        flattened."""
+        lib_path = self.config["library_path"]
+        fasta_paths = list(self.config["fasta_paths"] or [])
+        predict = self.config["library_prediction"]["enabled"]
+        for key in ("save_library", "save_flat_library"):
+            if self.config["general"][key]:
+                raise NotPortedError(f"general.{key}: libraries in HDF come with the HDF slice of the port (ROADMAP queue 1)")
+        if self.config["library_multiplexing"]["enabled"]:
+            raise NotPortedError(
+                "library_multiplexing.enabled: the multiplexed library and its requant come with the requant slice "
+                "of the port (ROADMAP queue 1)"
+            )
+        if not lib_path:
+            if fasta_paths and predict:
+                raise NotPortedError(
+                    "a library digested from FASTA and predicted comes with the prediction slice of the port "
+                    "(ROADMAP queue 1)"
+                )
+            raise NoLibraryAvailableError()
+
+        lib = DynamicLoader()(lib_path)
+        if predict or lib.fragment_intensity is None or "rt" not in lib.precursor_df:
+            raise NotPortedError(
+                "this library needs predicted retention times or fragment intensities: prediction comes with the "
+                "prediction slice of the port (ROADMAP queue 1)"
+            )
+        steps = [PrecursorInitializer(self.config["library_loading"]["drop_decoys"])]
+        if fasta_paths:
+            steps.append(AnnotateFasta(fasta_paths))
+        lib = ProcessingPipeline(steps + [IsotopeGenerator(), RTNormalization()])(lib)
+
+        lib = DecoyGenerator("diann")(lib)
+        return ProcessingPipeline(
+            [
+                FlattenLibrary(self.config["search"]["top_k_fragments_scoring"], self.config["search"]["min_fragment_intensity"]),
+                InitFlatColumns(),
+                LogFlatLibraryStats(),
+            ]
+        )(lib)
+
+    def run(self) -> None:
+        self._refuse_later_slices()
+        self.spectral_library = self.load_library()
+
+        quant_dir = Path(self.config["quant_directory"] or self.output_folder / QUANT_FOLDER_NAME)
+        for raw_path in list(self.config["raw_paths"] or []):
+            raw_name = Path(raw_path).stem
+            psm_path = quant_dir / raw_name / SearchStepFiles.PSM_FILE_NAME
+            if self.config["general"]["reuse_quant"] and psm_path.exists():
+                logger.log(PROGRESS, "Reusing quant for %s", raw_name)
+                continue
+            try:
+                self._process_raw_file(raw_path, raw_name, quant_dir)
+            except Exception as e:
+                if isinstance(e, CustomError):
+                    self.errors.append((raw_name, e.error_code))
+                    logger.error("%s: %s: %s", raw_name, e.error_code, e)
+                else:
+                    self.errors.append((raw_name, str(e)))
+                    logger.error("%s failed: %s\n%s", raw_name, e, traceback.format_exc())
+                if self.config["general"]["fail_fast"]:
+                    logger.error("fail_fast: skipping remaining raw files")
+                    raise
+
+    def _process_raw_file(self, raw_path: str, raw_name: str, quant_dir: Path) -> None:
+        per_file_seed = int(self._np_rng.integers(0, 2**31)) if self.config["general"]["random_state"] is not None else None
+        workflow = PeptideCentricWorkflow(
+            raw_name, self.config, quant_path=str(quant_dir), random_state=per_file_seed, device=self.device
+        )
+        workflow.load(raw_path, self.spectral_library.copy())
+        workflow.search_parameter_optimization()
+        psm_df, frag_df = workflow.extraction()
+        write_parquet(psm_df, workflow.path / SearchStepFiles.PSM_FILE_NAME)
+        write_parquet(frag_df, workflow.path / SearchStepFiles.FRAG_FILE_NAME)
+        workflow.dia_data.free_device()
+

@@ -8,7 +8,12 @@ their quadrupole window, plus uniform noise peaks; and a flat library whose
 coordinates carry a systematic m/z (ppm) and RT bias.
 
 The numpy random calls are the JAX package's, in the same order, so one
-seed gives identical arrays in both packages.
+seed gives identical arrays in both packages. ``from_sequence=True`` is the
+port's own: each peptide's precursor m/z, b/y fragment m/z (with real series
+numbers, inside ``fragment_mz_range``) and MS1 isotope envelope come from its
+sequence, as a library built from sequences computes them, so that
+sequence-derived decoys fall in the same isolation windows as their targets. Its extra draws come from a
+generator of their own; the others are made as without it.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from alphadia_torch.library import chem
 from alphadia_torch.rawdata.source import SpectrumData
 
 _AA = np.array(list("ACDEFGHIKLMNPQRSTVWY"))
@@ -47,6 +53,7 @@ class SyntheticConfig:
     mobility_range: tuple = (0.6, 1.4)  # 1/K0
     mobility_fwhm: float = 0.08
     lib_mobility_sigma: float = 0.01
+    from_sequence: bool = False  # m/z and isotope envelopes from the sequences
 
 
 def _random_sequences(rng: np.random.Generator, n: int, length=(7, 15)) -> np.ndarray:
@@ -83,6 +90,9 @@ def make_synthetic_dia(
     charge = rng.integers(2, 4, n)
     amplitude = cfg.base_intensity * 10 ** rng.normal(0.0, 0.5, n)
     detectable = rng.random(n) < cfg.detectable_fraction
+    if cfg.from_sequence:
+        seq_rng = np.random.default_rng([cfg.seed, 7])
+        sequence, charge, pmz = _sequences_in_range(seq_rng, charge, cfg)
     window_of = np.clip(
         np.searchsorted(win_edges, pmz, side="right") - 1, 0, cfg.n_windows - 1
     )
@@ -99,6 +109,13 @@ def make_synthetic_dia(
     iso_rel = np.stack(
         [np.ones(n), rng.uniform(0.3, 0.9, n), rng.uniform(0.1, 0.4, n)], axis=1
     )[:, : cfg.n_isotopes].astype(np.float32)
+    if cfg.from_sequence:
+        frag_mz, frag_number, frag_charge = _sequence_fragments(
+            seq_rng, sequence, frag_type, frag_charge, cfg.fragment_mz_range
+        )
+        frag_mz *= 1.0 + cfg.lib_ppm_bias * 1e-6
+        env = chem.isotope_envelopes(chem.peptide_compositions(list(sequence)), k_max=cfg.n_isotopes)
+        iso_rel = (env / env[:, :1]).astype(np.float32)
 
     rt_center_obs = rt_center + cfg.run_rt_shift
     amplitude = amplitude * cfg.run_intensity_factor
@@ -201,7 +218,8 @@ def make_synthetic_dia(
         if cfg.with_mobility
         else np.zeros(n, dtype=np.float32)
     )
-    sequence = _random_sequences(rng, n)
+    if not cfg.from_sequence:
+        sequence = _random_sequences(rng, n)
     precursor = {
         "precursor_idx": np.arange(n, dtype=np.uint32),
         "elution_group_idx": np.arange(n, dtype=np.uint32),
@@ -237,6 +255,10 @@ def make_synthetic_dia(
         "number": frag_number.ravel(),
         "position": (frag_number.ravel() - 1).astype(np.uint8),
     }
+    if cfg.from_sequence:  # the cleavage site: y_k sits at nAA - 1 - k
+        naa = np.repeat(precursor["nAA"].astype(np.int64), F)
+        y = fragment["type"] == 121
+        fragment["position"][y] = (naa[y] - 1 - frag_number.ravel()[y]).astype(np.uint8)
     return spectra, precursor, fragment
 
 
@@ -285,3 +307,70 @@ def add_synthetic_decoys(
         return {c: np.concatenate([p[c] for p in parts]) for c in parts[0]}
 
     return cat(prec_parts), cat(frag_parts)
+
+
+def _fragment_sites(seq: str, lo: float, hi: float) -> dict:
+    """For b (98) and y (121) ions: the series numbers 2 .. nAA - 1 whose ion
+    lies in [lo, hi] at charge 1 or 2."""
+    ladders = chem.fragment_mz_arrays(seq)
+    sites = {}
+    for t in (98, 121):
+        sites[t] = [
+            k for k in range(2, len(seq))
+            if any(lo <= ladders[f"{chr(t)}_z{z}"][k - 1 if t == 98 else len(seq) - 1 - k] <= hi for z in (1, 2))
+        ]
+    return sites
+
+
+def _sequences_in_range(rng: np.random.Generator, charge: np.ndarray, cfg: SyntheticConfig):
+    """Random sequences whose precursor m/z at the drawn charge (or else at
+    the other of 2 and 3) lies inside the isolation range, 0.5 from its ends,
+    and which have a b and a y ion inside the fragment range for each of
+    their fragments of that type; a sequence that fails is drawn again.
+    Returns (sequences, charges, observed precursor m/z, which carry the
+    library's ppm bias)."""
+    lo, hi = cfg.precursor_mz_range[0] + 0.5, cfg.precursor_mz_range[1] - 0.5
+    need = {98: (cfg.n_fragments + 1) // 2, 121: cfg.n_fragments // 2}
+    n = len(charge)
+    sequence = _random_sequences(rng, n).astype(object)
+    charge = charge.copy()
+    todo = np.arange(n)
+    while len(todo):
+        left = []
+        for i in todo:
+            sites = _fragment_sites(sequence[i], *cfg.fragment_mz_range)
+            fits = [z for z in (int(charge[i]), 5 - int(charge[i])) if lo <= chem.precursor_mz(sequence[i], z) <= hi]
+            if fits and all(len(sites[t]) >= need[t] for t in need):
+                charge[i] = fits[0]
+            else:
+                left.append(i)
+        todo = np.array(left, np.int64)
+        if len(todo):
+            sequence[todo] = _random_sequences(rng, len(todo))
+    mz = np.array([chem.precursor_mz(s, int(z)) for s, z in zip(sequence, charge)])
+    return sequence.astype(str), charge, mz * (1.0 + cfg.lib_ppm_bias * 1e-6)
+
+
+def _sequence_fragments(rng: np.random.Generator, sequence, frag_type: np.ndarray, frag_charge: np.ndarray, mz_range):
+    """The m/z, series numbers and charges of each peptide's fragments:
+    numbers drawn without repeats, for each type, from those whose ion lies
+    in ``mz_range``; a fragment keeps its drawn charge where its ion lies in
+    the range there, else takes the other of 1 and 2."""
+    n, F = frag_type.shape
+    mz = np.zeros((n, F), np.float64)
+    number = np.zeros((n, F), np.uint8)
+    charge = frag_charge.copy()
+    lo, hi = mz_range
+    for i, seq in enumerate(sequence):
+        ladders = chem.fragment_mz_arrays(seq)
+        sites = _fragment_sites(seq, lo, hi)
+        for t in (98, 121):
+            cols = np.nonzero(frag_type[i] == t)[0]
+            k = np.sort(rng.choice(sites[t], size=len(cols), replace=False))
+            number[i, cols] = k
+            for c, kk in zip(cols, k):
+                ladder = lambda z: ladders[f"{chr(t)}_z{z}"][kk - 1 if t == 98 else len(seq) - 1 - kk]  # noqa: E731
+                z = int(charge[i, c]) if lo <= ladder(int(charge[i, c])) <= hi else 3 - int(charge[i, c])
+                charge[i, c] = z
+                mz[i, c] = ladder(z)
+    return mz, number, charge

@@ -73,6 +73,20 @@ def unique_in_order(values: np.ndarray) -> np.ndarray:
     return values[np.sort(first)]
 
 
+def factorize(values) -> np.ndarray:
+    """Codes of ``values`` numbered in order of first appearance, as
+    ``pd.factorize(values, sort=False)[0]``."""
+    uniq, first, inverse = np.unique(np.asarray(values), return_index=True, return_inverse=True)
+    rank = np.empty(len(uniq), np.int64)
+    rank[np.argsort(first)] = np.arange(len(uniq))
+    return rank[inverse.reshape(-1)]
+
+
+def rename(frame: dict, mapping: dict) -> dict:
+    """The columns renamed in place of the old ones, as pandas' ``rename``."""
+    return {mapping.get(k, k): v for k, v in frame.items()}
+
+
 def copy_frame(frame: dict) -> dict:
     """A deep copy, as ``DataFrame.copy()``."""
     return {k: np.array(v, copy=True) for k, v in frame.items()}

@@ -2,7 +2,8 @@
 ``rawdata.source.load_raw_file``, the ``DiaData`` build and a stat record.
 
 The JAX package caches parsed mzML spectra as HDF beside the source; that
-cache needs h5py and the mzML reader, both of a later slice of the port."""
+cache needs an HDF5 writer and comes with the HDF slice of the port: each
+search parses its mzML file anew."""
 
 from __future__ import annotations
 

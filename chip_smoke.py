@@ -49,7 +49,17 @@ Phases, in order; any failure exits non-zero:
    1% FDR and the fragment m/z calibration gated against the JAX package's
    readings; and the workflow on the card against the same workflow on the
    CPU on the small world of the CPU tests;
-8. the ``{"kernels": [...]}`` line, then the card's name and power limit,
+8. the search step on both worlds: each run written as ``.mzML`` (per-peak
+   mobility arrays on 4D) and read back through ``load_raw_file`` (every
+   array equal bit for bit), its targets as a TSV transition list, then
+   ``SearchStep(out, config).run()`` at the default config: the library
+   built from the TSV (parse, harmonize, hashing, decoys, flatten timed),
+   the workflow of phase [7], ``psm.parquet`` and ``frag.parquet`` (read
+   back equal to the step's frames) and ``frozen_config.yaml``; the IDs at
+   1% FDR gated against the JAX package's readings of the same kind of
+   inputs, the kernel's launches counted and each pass's first launch of
+   every step and of the final extraction held against the plain version;
+9. the ``{"kernels": [...]}`` line, then the card's name and power limit,
    then the ``{"ok": true, ...}`` line last.
 """
 
@@ -150,6 +160,36 @@ WF_RANDOM_STATE = 0
 WF_IDENTIFIED_MIN = {"": 0.995, "_4d": 0.9879}
 WF_FALSE_MAX = {"": 0.0417, "_4d": 0.0256}
 WF_BIAS_MAX_PPM = {"": 0.5137, "_4d": 0.5076}
+# phase [8], the search step from an mzML file and a TSV library, on the
+# worlds made from sequences (SyntheticConfig(from_sequence=True), so that
+# the library's sequence-derived decoys fall in their targets' windows and
+# compete): the JAX package's SearchStep on the CPU at a quarter of each
+# world (3 isolation windows instead of 12, the same density a window, the
+# default config, the same inputs made the same way) at random states 0, 1
+# and 2. One state does not make a reading here: the automatic RT
+# optimizer proposes 1.1 times the 0.5 / 99.5 percentiles of the RT
+# residuals, which lie among the few accepted IDs off their apex or not,
+# and the final RT tolerance and the false share follow. 3D identified
+# 1.0000 / 0.9992 / 0.9984, false 0.0164 / 0.0411 / 0.0626, RT tolerance
+# 29.2016 / 194.7021 / 195.7823 s (`PYTHONPATH=. python
+# tests/test_torch_search_step.py --peptides 1500 --windows 3
+# --random-state N`); 4D identified 0.8557 / 0.8610 / 0.8634, false 0.0368
+# / 0.0424 / 0.0459, RT tolerance 236.7987 / 284.5975 / 323.4957 s (`...
+# --peptides 6250 --windows 3 --mobility --batch-size 2000 --random-state
+# N`). Gates: identified at least the least of them less 0.005; false at
+# most 0.02, or the largest plus 0.005 where that is higher; the RT
+# tolerance at most 1.25 times the largest, below its start of 449.25 s, so
+# that a calibration that never moves fails. The 4D search step runs on
+# that quarter world itself (6,250 peptides, 3 windows, calibration batch
+# 2,000): with decoys from sequences a 4D world of 12 windows, 50 m/z wide,
+# identifies 0.009 less than its quarter, whose windows are 200 m/z wide
+# (the port on the card, random states 0-2, `tests/
+# torch_search_step_readings.py`), so the quarter's reading does not hold
+# at full width. The 3D step stays at full width (0.003 less there)
+SS_IDENTIFIED_MIN = {"": 0.9934, "_4d": 0.8507}
+SS_FALSE_MAX = {"": 0.0676, "_4d": 0.0509}
+SS_RT_ERROR_MAX = {"": 244.7279, "_4d": 404.3696}
+SS_BATCH_4D = 2000
 # the workflow on the card against the CPU, on the 3D world of the CPU tests
 # (tests/torch_workflow_worlds.py)
 WF_TOL_REL = 0.05
@@ -1280,9 +1320,15 @@ def phase7(label, tag, spectra, prec, frag, name, card, launches, secs, tmp):
     if bias > WF_BIAS_MAX_PPM[tag]:
         raise AssertionError(f"{label}: the fragment m/z calibration misses the planted bias")
 
-    # each pass's first launch of every step and of the final extraction
+    return first_launches_against_plain("[7]", label, rec.calls)
+
+
+def first_launches_against_plain(phase, label, calls):
+    """Each pass's first recorded launch of every optimization step and of
+    the final extraction, run again and held against the plain version;
+    returns the largest (abs, rel) error."""
     first = {}
-    for stage, args, kw in rec.calls:
+    for stage, args, kw in calls:
         first.setdefault((stage, pass_of(kw)), (args, kw))
     stages = {st for st, _ in first}
     if "extraction" not in stages or not any(st.startswith("step") for st in stages):
@@ -1293,7 +1339,7 @@ def phase7(label, tag, spectra, prec, frag, name, card, launches, secs, tmp):
         B, Q = args[2].shape
         for plane, (mabs, mrel, bad, total) in zip(("intensity", "mz"), res):
             log(
-                f"[7] {label} {stage:10s} {pass_name:9s} {variant(kw):13s} B={B} Q={Q} W={kw['window_len']} "
+                f"{phase} {label} {stage:10s} {pass_name:9s} {variant(kw):13s} B={B} Q={Q} W={kw['window_len']} "
                 f"{plane:9s} max_abs={mabs:.3g} max_rel={mrel:.3g} outside_tol={bad}"
             )
             if bad:
@@ -1323,6 +1369,200 @@ def workflow_card_vs_cpu(root, tmp, name, card):
     )
     if cmp["steps"][0] != cmp["steps"][1] or cmp["tolerance_rel"] > WF_TOL_REL or cmp["jaccard"] < WF_JACCARD_MIN:
         raise AssertionError("the workflow on the card disagrees with the workflow on the CPU")
+
+
+# ---------------------------------------------------------------------------
+# 8. the search step
+# ---------------------------------------------------------------------------
+def same_frame(a: dict, b: dict) -> bool:
+    """Equal column names, order, dtypes (text as object) and values."""
+    if list(a) != list(b):
+        return False
+    for k in a:
+        x, y = np.asarray(a[k]), np.asarray(b[k])
+        if x.dtype.kind in "OU" or y.dtype.kind in "OU":
+            if x.dtype.kind not in "OU" or y.dtype.kind not in "OU" or list(map(str, x)) != list(map(str, y)):
+                return False
+        elif x.dtype != y.dtype or not np.array_equal(x, y, equal_nan=x.dtype.kind == "f"):
+            return False
+    return True
+
+
+def mzml_round_trip(label, spectra, raw_path):
+    """Writes the spectra as mzML with the port's writer and reads them back
+    with ``load_raw_file``: the walls, the size, and every array equal bit
+    for bit (raises if not)."""
+    from alphadia_torch.rawdata import load_raw_file
+    from alphadia_torch.testing.mzml_writer import write_mzml
+
+    t0 = time.perf_counter()
+    write_mzml(raw_path, spectra)
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = load_raw_file(raw_path)
+    t_read = time.perf_counter() - t0
+    fields = ("rt", "ms_level", "isolation_lower_mz", "isolation_upper_mz", "peak_start_idx", "peak_stop_idx", "mz", "intensity", "mobility")
+    same = all(
+        (getattr(back, f) is None and getattr(spectra, f) is None)
+        or (getattr(back, f) is not None and getattr(spectra, f) is not None
+            and getattr(back, f).dtype == getattr(spectra, f).dtype and np.array_equal(getattr(back, f), getattr(spectra, f)))
+        for f in fields
+    )
+    n_peaks = len(spectra.mz)
+    log(
+        f"[8] {label} reader: {raw_path.name} {raw_path.stat().st_size / 2**20:.1f} MiB, {spectra.n_spectra} spectra, "
+        f"{n_peaks} peaks; written in {t_write:.4f} s, read in {t_read:.4f} s "
+        f"({raw_path.stat().st_size / t_read / 2**20:.1f} MiB/s, {n_peaks / t_read:.0f} peaks/s); "
+        f"every array equal bit for bit {same}"
+    )
+    if not same:
+        raise AssertionError(f"{label}: the mzML read back differs from the spectra written")
+
+
+def phase8(root, label, tag, spectra, prec, frag, name, card, launches, secs, tmp, batch_size=None):
+    """``SearchStep`` from an mzML file and a TSV transition list on one
+    world: the reader, the library build, the workflow and the parquet
+    files, each timed; gates the spectra read back, the files, the IDs at
+    1% FDR and the kernel's first launches of every pass."""
+    import torch
+
+    import alphadia_torch.library.loader as loader
+    import alphadia_torch.rawdata.mzml as mzml
+    import alphadia_torch.search_step as search_step
+    from alphadia_torch.library.decoy import DecoyGenerator
+    from alphadia_torch.library.flatten import FlattenLibrary, InitFlatColumns
+    from alphadia_torch.library.harmonize import IsotopeGenerator, PrecursorInitializer, RTNormalization
+    from alphadia_torch.library.speclib import SpecLibBase
+    from alphadia_torch.ops import xic_cuda
+    from alphadia_torch.testing.tsv_library import write_transition_list
+    from alphadia_torch.utils.parquet import read_parquet
+    from alphadia_torch.workflow.peptidecentric.optimization_handler import OptimizationHandler
+
+    sys.path.insert(0, str(root / "tests"))
+    from torch_workflow_worlds import search_id_shares
+
+    raw_path, lib_path = tmp / f"run{tag or '_3d'}.mzML", tmp / f"library{tag or '_3d'}.tsv"
+    mzml_round_trip(label, spectra, raw_path)
+    targets = np.nonzero(prec["decoy"] == 0)[0]
+    truth = {k: v[targets] for k, v in prec.items()}
+    write_transition_list(lib_path, truth, frag)
+    log(f"[8] {label} library: {lib_path.name} {lib_path.stat().st_size / 2**20:.1f} MiB, {len(targets)} target precursors")
+
+    captured = {}
+    workflow_cls = search_step.PeptideCentricWorkflow
+    process_batch = OptimizationHandler._process_batch
+
+    class Captured(workflow_cls):
+        def load(self, *a, **k):
+            rec.stage = "load"
+            captured["wf"] = self
+            return super().load(*a, **k)
+
+        def extraction(self):
+            rec.stage = "extraction"
+            captured["frames"] = super().extraction()
+            return captured["frames"]
+
+    def staged(handler):
+        rec.stage = f"step{len(handler.step_log)}"
+        return process_batch(handler)
+
+    timed = [
+        (mzml, "read_mzml", "reader"), (loader, "load_speclib_tsv", "tsv"),
+        (PrecursorInitializer, "forward", "harmonize"), (IsotopeGenerator, "forward", "harmonize"),
+        (RTNormalization, "forward", "harmonize"), (SpecLibBase, "hash_precursors", "hashing"),
+        (DecoyGenerator, "forward", "decoys"), (FlattenLibrary, "forward", "flatten"), (InitFlatColumns, "forward", "flatten"),
+        (search_step.SearchStep, "load_library", "library"), (search_step, "write_parquet", "parquet"),
+    ]
+    out = tmp / f"search{tag or '_3d'}"
+    config = {
+        "library_path": str(lib_path), "raw_paths": [str(raw_path)],
+        "general": {"random_state": WF_RANDOM_STATE, "save_figures": False, "log_level": "PROGRESS"},
+    }
+    if batch_size is not None:
+        config["calibration"] = {"batch_size": batch_size}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    search_step.PeptideCentricWorkflow = Captured
+    OptimizationHandler._process_batch = staged
+    try:
+        with Recorder() as rec, MethodTimes(timed) as mt:
+            xic_cuda.launches = 0
+            t0 = time.perf_counter()
+            step = search_step.SearchStep(str(out), config=config)
+            step.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            n_launch = xic_cuda.launches
+    finally:
+        search_step.PeptideCentricWorkflow = workflow_cls
+        OptimizationHandler._process_batch = process_batch
+    if step.errors:
+        raise AssertionError(f"{label}: the search step failed: {step.errors}")
+    if n_launch != len(rec.calls) or n_launch == 0:
+        raise AssertionError(f"{label}: {n_launch} kernel launches counted, {len(rec.calls)} wrapper calls recorded")
+    peak = torch.cuda.max_memory_allocated()
+    launches["search_step" + tag] = n_launch
+    secs["search_step" + tag] = wall
+    wf = captured["wf"]
+    psm, fragments = captured["frames"]
+    lib = step.spectral_library
+    timings = {k: v.get("duration", float("nan")) for k, v in wf.timing_manager.timings.items()}
+    s = mt.seconds
+    log(
+        f"[8] {label} search step: wall {wall:.4f} s; library {s['library']:.4f} s (TSV parse {s['tsv']:.4f} s, "
+        f"harmonize {s['harmonize']:.4f} s of which hashing {s['hashing']:.4f} s, decoys {s['decoys']:.4f} s, "
+        f"flatten {s['flatten']:.4f} s): {len(lib.precursor_df['precursor_idx'])} precursors, "
+        f"{len(lib.fragment_df['mz_library'])} fragments after flattening; workflow load {timings['load']:.4f} s "
+        f"(of which the mzML reader {s['reader']:.4f} s), optimization {timings['optimization']:.4f} s "
+        f"({len(wf.optimization_handler.step_log)} steps), extraction {timings['extraction']:.4f} s; parquet writes "
+        f"{s['parquet']:.4f} s; max_memory_allocated {peak / 2**30:.3f} GiB ({name}, {card})"
+    )
+
+    quant = out / "quant" / raw_path.stem
+    files = {f: (quant / f).exists() for f in ("psm.parquet", "frag.parquet")}
+    files["frozen_config.yaml"] = (out / "frozen_config.yaml").exists()
+    same_psm = files["psm.parquet"] and same_frame(read_parquet(quant / "psm.parquet"), psm)
+    same_frag = files["frag.parquet"] and same_frame(read_parquet(quant / "frag.parquet"), fragments)
+    log(
+        f"[8] {label} files: {files}; psm.parquet {(quant / 'psm.parquet').stat().st_size / 2**20:.2f} MiB read back "
+        f"equal {same_psm}, frag.parquet {(quant / 'frag.parquet').stat().st_size / 2**20:.2f} MiB read back equal {same_frag}"
+    )
+    if not all(files.values()) or not same_psm or not same_frag:
+        raise AssertionError(f"{label}: the search step's files are missing or differ from its frames")
+
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=DEVICE)
+    per_pass = summed_device_ms(rec.calls, flush)
+    del flush
+    for (stage, pass_name), a in sorted(per_pass.items()):
+        log(
+            f"[8] {label} kernel, {stage} {pass_name}: {a['launches']} launches, {a['ms']:.4f} ms warm "
+            f"({a['bound_ms'] / a['ms']:.2f} of bound), L2 flushed {a['flushed_ms']:.4f} ms, bound {a['bound_ms']:.4f} ms "
+            f"({a['bytes'] / 1e6:.2f} MB) ({name}, {card})"
+        )
+    kernel_ms = sum(a["ms"] for a in per_pass.values())
+    log(
+        f"[8] {label} kernel: {n_launch} launches in the search step, summed device time {kernel_ms:.4f} ms warm, "
+        f"bound {sum(a['bound_ms'] for a in per_pass.values()):.4f} ms; {kernel_ms / (wall * 1e3):.5f} of the step's "
+        f"wall ({name}, {card})"
+    )
+
+    identified, false, n_t, n_d = search_id_shares(wf.dia_data.cycle_rt, truth, psm)
+    rt_error = float(wf.optimization_manager.rt_error)
+    log(
+        f"[8] {label} IDs at 1% FDR: {n_t} targets, {n_d} decoys, {len(fragments['precursor_idx'])} fragments; "
+        f"identified share {identified:.4f} (bound {SS_IDENTIFIED_MIN[tag]}); realised false share {false:.4f} "
+        f"(bound {SS_FALSE_MAX[tag]}); final ms2_error {float(wf.optimization_manager.ms2_error):.4f}, rt_error "
+        f"{rt_error:.4f} (bound {SS_RT_ERROR_MAX[tag]}); FDR classifier versions trained "
+        f"{len(wf.fdr_manager.classifier_store)} ({name}, {card})"
+    )
+    if identified < SS_IDENTIFIED_MIN[tag] or false > SS_FALSE_MAX[tag]:
+        raise AssertionError(f"{label}: the search step's IDs at 1% FDR miss their gates")
+    if rt_error > SS_RT_ERROR_MAX[tag]:
+        raise AssertionError(f"{label}: the RT tolerance did not converge ({rt_error:.4f} s)")
+    if not wf.fdr_manager.classifier_store:
+        raise AssertionError(f"{label}: every FDR fit fell back to logistic regression")
+    return first_launches_against_plain("[8]", label, rec.calls)
 
 
 # ---------------------------------------------------------------------------
@@ -1472,9 +1712,34 @@ def main(argv=None) -> int:
             _, prec, frag = worlds[tag]
             w = phase7(label, tag, spectra[tag], prec, frag, name, card, launches, secs, tmp)
             max_abs_err = max(max_abs_err, w[0])
-    log(f"[7] kernel launches per run: {json.dumps(launches)} ({name}, {card})")
+        log(f"[7] kernel launches per run: {json.dumps(launches)} ({name}, {card})")
 
-    # ---- 8. summary lines ---------------------------------------------------
+        # ---- 8. the search step ---------------------------------------------
+        # worlds with m/z and isotope envelopes from the sequences, so that
+        # the library's sequence-derived decoys compete. 3D at full width;
+        # 4D at the quarter world of its JAX readings (see SS_BATCH_4D): the
+        # full 4D world is written and read back from mzML only
+        t0 = time.perf_counter()
+        spec8, _, _ = make_spectra(N_PEPTIDES_4D, N_CYCLES, from_sequence=True, with_mobility=True)
+        log(f"[8] 4D full world from sequences: {len(spec8.mz)} peaks, made in {time.perf_counter() - t0:.2f} s")
+        mzml_round_trip("4D full world", spec8, tmp / "run_4d_full.mzML")
+        del spec8
+        for label, tag, n_pep, n_win, batch, kw in (
+            ("3D", "", N_PEPTIDES, 12, None, {}),
+            ("4D", "_4d", N_PEPTIDES_4D // 4, 3, SS_BATCH_4D, {"with_mobility": True}),
+        ):
+            t0 = time.perf_counter()
+            spec8, prec, frag = make_spectra(n_pep, N_CYCLES, n_windows=n_win, from_sequence=True, **kw)
+            log(
+                f"[8] {label} world from sequences: {n_pep} peptides, {n_win} windows, {len(spec8.mz)} peaks, "
+                f"made in {time.perf_counter() - t0:.2f} s"
+            )
+            w = phase8(root, label, tag, spec8, prec, frag, name, card, launches, secs, tmp, batch_size=batch)
+            max_abs_err = max(max_abs_err, w[0])
+            del spec8, prec, frag
+    log(f"[8] kernel launches per run: {json.dumps(launches)} ({name}, {card})")
+
+    # ---- 9. summary lines ---------------------------------------------------
     kernels = {
         "kernels": [
             {

@@ -160,6 +160,7 @@ def test_logistic_fallback_matches_sklearn():
     xz = (x - mu) / sd
     sk = LogisticRegression(class_weight="balanced", max_iter=1000, random_state=0).fit(xz, y).predict_proba(xz)[:, 1]
     np.testing.assert_allclose(balanced_logistic_proba(xz, y), sk, rtol=0, atol=1e-4)
+    assert balanced_logistic_proba(xz, y).dtype == sk.dtype == np.float32
 
     cols = [f"f{i}" for i in range(6)]
     t = pd.DataFrame(x[:n_t], columns=cols).assign(precursor_idx=np.arange(n_t), elution_group_idx=np.arange(n_t), channel=0)

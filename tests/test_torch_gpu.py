@@ -6,8 +6,9 @@ and on the launches that a 4D scoring pass makes; the plain 4D
 extraction rerun on the card, which must give the same bits; the
 pipelined extraction against sequential selection and scoring, both
 enqueuing every batch before they wait for any, classifier fits on the
-card (one held to a fit on the CPU), and the per-run workflow (load ->
-optimization -> extraction) on the card held to the same run on the CPU.
+card (one held to a fit on the CPU), the per-run workflow (load ->
+optimization -> extraction) and ``SearchStep`` (mzML and TSV library in,
+``psm.parquet`` out) on the card, each held to the same run on the CPU.
 
 Marked ``gpu``: each test skips where no CUDA card is present, and the
 decision is taken inside the test. On the card the file needs neither JAX
@@ -443,6 +444,25 @@ def test_workflow_on_card_matches_the_cpu(card, tmp_path):
     on_cpu = run_port(tmp_path, "3d", "cpu")
     assert on_card[0].device.type == "cuda"
     cmp = compare_runs(on_card[:2], on_cpu[:2])
+    assert cmp["steps"][0] == cmp["steps"][1]
+    assert cmp["tolerance_rel"] <= 0.05
+    assert cmp["jaccard"] >= 0.95 and cmp["ids"][1] > 100
+
+
+def test_search_step_on_card_matches_the_cpu(card, tmp_path):
+    """``SearchStep`` from an mzML file and a TSV library on the small 3D
+    world, on the card and on the CPU: the same steps per optimizer, the
+    final tolerances within 5%, the target IDs at 1% FDR with a Jaccard
+    overlap >= 0.95."""
+    from torch_workflow_worlds import WORLDS, compare_runs, run_search_step, write_search_inputs
+
+    raw_path, lib_path, _, _ = write_search_inputs(tmp_path, WORLDS["3d"]["world"])
+    runs = {
+        device: run_search_step(tmp_path / device, raw_path, lib_path, WORLDS["3d"]["config"], device)
+        for device in ("cuda", "cpu")
+    }
+    assert runs["cuda"][1].device.type == "cuda"
+    cmp = compare_runs(runs["cuda"][1:], runs["cpu"][1:])
     assert cmp["steps"][0] == cmp["steps"][1]
     assert cmp["tolerance_rel"] <= 0.05
     assert cmp["jaccard"] >= 0.95 and cmp["ids"][1] > 100

@@ -1,7 +1,7 @@
 """The port imports without JAX, the JAX package, pandas or the other
-packages it does not depend on (scikit-learn, xxhash, matplotlib, yaml,
-h5py, lxml, zstandard), and its entry points refuse to run on a missing
-card unless the CPU is asked for."""
+packages it does not depend on (pyarrow, scikit-learn, xxhash, matplotlib,
+yaml, h5py, lxml, zstandard), and its entry points refuse to run on a
+missing card unless the CPU is asked for."""
 
 import subprocess
 import sys
@@ -18,7 +18,7 @@ _BLOCKED_IMPORT = """
 import importlib.abc, sys
 BLOCKED = (
     "jax", "jaxlib", "flax", "optax", "alphadia_tpu", "pandas",
-    "sklearn", "xxhash", "matplotlib", "yaml", "h5py", "lxml", "zstandard",
+    "sklearn", "xxhash", "matplotlib", "yaml", "h5py", "lxml", "zstandard", "pyarrow",
 )
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
@@ -71,6 +71,20 @@ import alphadia_torch.workflow.peptidecentric.extraction_handler
 import alphadia_torch.workflow.peptidecentric.library_init
 import alphadia_torch.workflow.peptidecentric.optimization_handler
 import alphadia_torch.workflow.peptidecentric.recalibration_handler
+import alphadia_torch.search_step
+import alphadia_torch.rawdata.mzml
+import alphadia_torch.rawdata.numpress
+import alphadia_torch.library.chem
+import alphadia_torch.library.decoy
+import alphadia_torch.library.digest
+import alphadia_torch.library.flatten
+import alphadia_torch.library.harmonize
+import alphadia_torch.library.loader
+import alphadia_torch.library.pipeline
+import alphadia_torch.utils.parquet
+import alphadia_torch.config.yaml_subset
+import alphadia_torch.testing.mzml_writer
+import alphadia_torch.testing.tsv_library
 cfg = alphadia_torch.config.load_default_config()
 assert cfg["tpu"]["gather_slab"] == 256
 loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
@@ -86,6 +100,36 @@ def test_port_imports_without_jax_or_pandas():
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+_BLOCKED_SEARCH = _BLOCKED_IMPORT.split("import alphadia_torch\n")[0] + """
+from pathlib import Path
+sys.path.insert(0, %r)
+from torch_workflow_worlds import WORLDS, write_search_inputs
+from alphadia_torch.search_step import SearchStep
+from alphadia_torch.utils.parquet import read_parquet
+tmp = Path(%r)
+raw_path, lib_path, _, _ = write_search_inputs(tmp, WORLDS["3d"]["world"])
+step = SearchStep(str(tmp / "out"), config={**WORLDS["3d"]["config"], "library_path": str(lib_path), "raw_paths": [str(raw_path)]}, device="cpu")
+step.run()
+assert not step.errors, step.errors
+assert len(read_parquet(tmp / "out" / "quant" / "run" / "psm.parquet")["precursor_idx"]) > 100
+assert (tmp / "out" / "frozen_config.yaml").exists()
+loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+assert not loaded, loaded
+print("ok")
+"""
+
+
+def test_search_step_runs_without_the_blocked_packages(tmp_path):
+    """mzML in, TSV library, the search step on the CPU, parquet out: no
+    module of the path imports a blocked package, lazily or otherwise."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_SEARCH % (str(REPO), str(REPO / "tests"), str(tmp_path))],
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().endswith("ok")
 
 
 def test_port_sources_name_no_jax():
@@ -122,6 +166,7 @@ def test_fdr_and_driver_entry_points_default_to_the_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: device=None resolves to it")
     from alphadia_torch.config import load_default_config
+    from alphadia_torch.search_step import SearchStep
     from alphadia_torch.workflow.peptidecentric.extraction_handler import ExtractionHandler
     from alphadia_torch.workflow.peptidecentric.peptidecentric import PeptideCentricWorkflow
 
@@ -132,6 +177,7 @@ def test_fdr_and_driver_entry_points_default_to_the_card(tmp_path):
         lambda: ExtractionHandler(load_default_config(), None, None),
         lambda: PipelinedExtraction(DiaData.__new__(DiaData), {}, {}),
         lambda: RtWindowedSearch(None, {}, {}),
+        lambda: SearchStep(str(tmp_path / "step")),
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()

@@ -183,9 +183,53 @@ def test_npz_raw_file_round_trip(tmp_path):
     assert manager.stats["n_cycles"] == jd.n_cycles and manager.stats["has_mobility"]
 
 
-@pytest.mark.parametrize("name", ["run.mzML", "run.mzml.gz", "run.hdf", "run.d", "run.raw"])
+@pytest.mark.parametrize("with_mobility", [False, True])
+def test_sequence_world_follows_chem(with_mobility):
+    """``from_sequence``: the library's precursor and fragment m/z are the
+    JAX package's ``chem`` values for each sequence, charge and series
+    number (less the planted ppm bias, rounded to float32) and lie in the
+    generator's fragment range, the isotope
+    envelope is the sequence's, every precursor lies in the isolation
+    range, and what does not come from the sequence equals the default
+    world's."""
+    from alphadia_tpu.library import chem as jax_chem
+
+    cfg = dict(n_peptides=60, n_windows=4, n_cycles=60, noise_peaks_per_spectrum=20, seed=3, with_mobility=with_mobility)
+    spectra, prec, frag = make_synthetic_dia(SyntheticConfig(**cfg, from_sequence=True))
+    _, prec0, frag0 = make_synthetic_dia(SyntheticConfig(**cfg))
+    seqs, charge = [str(x) for x in prec["sequence"]], prec["charge"].astype(int)
+    want = np.array([jax_chem.precursor_mz(q, z) for q, z in zip(seqs, charge)])
+    np.testing.assert_allclose(prec["mz_library"], want, rtol=1e-6, atol=0)
+    assert ((want > 400.5) & (want < 999.5)).all()
+    env = jax_chem.isotope_envelopes(jax_chem.peptide_compositions(seqs), k_max=3)
+    np.testing.assert_allclose(np.stack([prec[f"i_{k}"] for k in range(3)], 1), env / env[:, :1], rtol=1e-6)
+    F = 10
+    for i, q in enumerate(seqs):
+        ladders = jax_chem.fragment_mz_arrays(q)
+        rows = slice(i * F, (i + 1) * F)
+        t, z, k, pos = frag["type"][rows], frag["charge"][rows], frag["number"][rows], frag["position"][rows]
+        assert len(set(zip(t, z, k))) == F and (k >= 2).all() and (k <= len(q) - 1).all()
+        site = np.where(t == 98, k - 1, len(q) - 1 - k.astype(int))
+        np.testing.assert_array_equal(pos, site)
+        mz = np.array([ladders[f"{chr(a)}_z{b}"][c] for a, b, c in zip(t, z, site)])
+        np.testing.assert_allclose(frag["mz_library"][rows], mz, rtol=1e-6, atol=0)
+        assert ((mz >= 200.0) & (mz <= 1400.0)).all()
+    for c in ("rt_library", "_truth_rt", "_truth_detectable", "mobility_library", "proteins"):
+        np.testing.assert_array_equal(prec[c], prec0[c])
+    for c in ("intensity", "type"):
+        np.testing.assert_array_equal(frag[c], frag0[c])
+
+
+@pytest.mark.parametrize("name", ["run.hdf", "run.d", "run.raw"])
 def test_raw_formats_without_a_reader_raise(tmp_path, name):
+    """``.hdf`` and ``.d`` raise until their readers' slice (the error names
+    the decoder each needs), other formats as unsupported; the formats the
+    error calls supported are only those that read."""
     from alphadia_torch.rawdata import load_raw_file
 
-    with pytest.raises(ValueError, match="not read yet" if not name.endswith(".raw") else "Unsupported"):
+    later = {"run.hdf": "HDF5", "run.d": "zstd"}.get(name)
+    with pytest.raises(ValueError, match=later or "Unsupported") as e:
         load_raw_file(tmp_path / name)
+    supported = str(e.value).split("Supported now:" if later else "Supported:")[1]
+    assert ".mzML" in supported and ".npz" in supported
+    assert ".hdf" not in supported and ".d " not in supported and ".d," not in supported

@@ -117,3 +117,68 @@ def compare_runs(a, b) -> dict:
         "jaccard": len(ia & ib) / max(len(ia | ib), 1),
         "ids": (len(ia), len(ib)),
     }
+
+
+def write_search_inputs(tmp, world: dict):
+    """A seeded world of the port's generator, its m/z and isotope envelopes
+    taken from the sequences (``from_sequence``), as a search step's inputs:
+    (mzML path, TSV transition list path of its targets, spectra, targets)."""
+    from alphadia_torch.testing.mzml_writer import write_mzml
+    from alphadia_torch.testing.synthetic import SyntheticConfig, make_synthetic_dia
+    from alphadia_torch.testing.tsv_library import write_transition_list
+
+    spectra, prec, frag = make_synthetic_dia(SyntheticConfig(**world, from_sequence=True))
+    raw_path, lib_path = tmp / "run.mzML", tmp / "library.tsv"
+    write_mzml(raw_path, spectra)
+    write_transition_list(lib_path, prec, frag)
+    return raw_path, lib_path, spectra, prec
+
+
+def search_id_shares(cycle_rt, truth: dict, psm: dict, fdr: float = 0.01) -> tuple[float, float, int, int]:
+    """(identified share, realised false share, targets, decoys at ``fdr``)
+    of a search step's PSMs against the generator's truth, matched by
+    (sequence, charge): the library the step builds numbers its precursors
+    anew. The identified share is that of detectable targets with a target
+    PSM at q <= fdr; the false share that of the accepted targets whose PSM
+    lies more than 3 cycles from the true apex."""
+    import numpy as np
+
+    accepted = psm["qval"] <= fdr
+    target = psm["decoy"] == 0
+    row = {(str(s), int(z)): i for i, (s, z) in enumerate(zip(truth["sequence"], truth["charge"]))}
+    hits = [row[(str(s), int(z))] for s, z in zip(psm["sequence"][accepted & target], psm["charge"][accepted & target])]
+    rows = np.array(hits, np.int64)
+    det = np.nonzero(truth["_truth_detectable"])[0]
+    identified = float(np.isin(det, rows).mean()) if len(det) else 0.0
+    truth_cycle = np.abs(cycle_rt[None, :] - truth["_truth_rt"][rows][:, None]).argmin(1)
+    off = np.abs(psm["frame_center"][accepted & target] - truth_cycle) > 3
+    return identified, float(off.mean()) if len(off) else 0.0, int(len(rows)), int((accepted & ~target).sum())
+
+
+def run_search_step(out_dir, raw_path, lib_path, config: dict, device):
+    """The port's ``SearchStep`` on one raw file: (step, its workflow with
+    ``ordered_optimizers`` recorded, the psm frame read back from
+    ``psm.parquet``)."""
+    import alphadia_torch.search_step as search_step
+    from alphadia_torch.utils.parquet import read_parquet
+
+    seen = []
+    base = search_step.PeptideCentricWorkflow
+
+    class Recording(base):
+        def load(self, *a, **k):
+            super().load(*a, **k)
+            record_optimizers(self)
+            seen.append(self)
+
+    search_step.PeptideCentricWorkflow = Recording
+    try:
+        step = search_step.SearchStep(
+            str(out_dir), config={**config, "library_path": str(lib_path), "raw_paths": [str(raw_path)]}, device=device
+        )
+        step.run()
+    finally:
+        search_step.PeptideCentricWorkflow = base
+    if step.errors:
+        raise RuntimeError(f"the search step failed: {step.errors}")
+    return step, seen[0], read_parquet(seen[0].path / "psm.parquet")
