@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from alphadia_torch.exceptions import NotPortedError
 from alphadia_torch.library import chem
 from alphadia_torch.utils.frame import concat, copy_frame, n_rows
 from alphadia_torch.utils.hashing import xxh64
@@ -157,3 +158,8 @@ class SpecLibFlat:
 
     def copy(self) -> "SpecLibFlat":
         return SpecLibFlat(copy_frame(self.precursor_df), copy_frame(self.fragment_df))
+
+    def save_hdf(self, path) -> None:
+        raise NotPortedError(
+            f"cannot write {path}: libraries in HDF come with the HDF slice of the port (ROADMAP queue 1 item 4)"
+        )

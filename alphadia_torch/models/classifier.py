@@ -4,7 +4,8 @@ The JAX package's flax/optax classifier, step for step:
 
 - BatchNorm(input) -> [Linear -> ReLU -> Dropout] over (100, 50, 20, 5)
   -> Linear(2) -> softmax;
-- loss: binary cross-entropy on the softmax clipped to [1e-7, 1 - 1e-7];
+- loss: binary cross-entropy on the softmax clipped to [1e-7, 1 - 1e-7],
+  with ``jnp.clip``'s gradient (half of it at a bound);
 - Adam (eps 1e-8 outside the square root) with coupled L2 weight decay
   1e-5, ``optax.chain(add_decayed_weights, adam)``: :class:`Adam` here
   (``torch.optim.Adam(weight_decay=..., fused=True)`` computes the same,
@@ -18,17 +19,19 @@ What has to match flax, and how:
 - flax's BatchNorm keeps running statistics with momentum 0.9 and the
   *biased* batch variance (``mean(x^2) - mean(x)^2``); ``nn.BatchNorm1d``
   uses the unbiased one, so :class:`BatchNorm` here is flax's;
-- initialisation: Dense kernels ``lecun_normal`` (a normal truncated at 2
-  standard deviations, variance 1/fan_in), zero biases, BN scale 1, bias 0;
-- the numpy generator is drawn in flax's order: the seed of the device
-  generator (also on a warm start), the test split, then one permutation
-  of the batches per epoch; rows past ``num_batches * batch`` are never
-  trained on;
+- the random numbers are JAX's (``utils/jax_random``): the Dense kernels
+  are flax's ``lecun_normal`` draws from ``PRNGKey(seed)`` (to a few
+  float32 ulps, see there), zero biases, BN scale 1, bias 0; the dropout
+  masks of step ``t`` come from the ``t``-th ``key, sub = split(key)`` of
+  the same key and each Dropout module's ``make_rng('dropout')`` under
+  ``sub``, counting the padded steps JAX's scan takes too;
+- the numpy generator is drawn in flax's order: the seed (also on a warm
+  start), the test split, then one permutation of the batches per epoch;
+  rows past ``num_batches * batch`` are never trained on;
 - the epoch metric is the loss of each epoch's last batch.
 
-Dropout draws from a ``torch.Generator`` seeded from the numpy draw (one
-draw for a block of steps), so only dropout 0 reproduces a JAX fit bit for
-bit. The training matrix is uploaded once, each batch is copied from it on
+The dropout uniforms are made on the fit's device in blocks of steps, from
+keys derived on the host once per fit. The training matrix is uploaded once, each batch is copied from it on
 the device into the step's input buffers, and the losses are read once per
 fit: no step waits for the device. On the card the first steps run eagerly
 on a side stream, and then one step (forward, backward, the Adam update)
@@ -53,6 +56,7 @@ import torch
 from torch import nn
 
 from alphadia_torch.convert import classifier_from_jax, classifier_to_jax
+from alphadia_torch.utils.jax_random import flax_rng, lecun_normal, prng_key, split_chain, uniform_torch
 from alphadia_torch.utils.device import resolve_device
 
 
@@ -92,27 +96,35 @@ class FeedForwardNN(nn.Module):
         """``noise``: uniform draws [B, sum(hidden widths)] for the dropout
         masks of a training step (unused in eval mode or at dropout 0)."""
         x = self.norm(x)
-        keep = 1.0 - self.dropout
+        keep = np.float32(1.0 - self.dropout)
+        # XLA turns flax's ``x / keep`` into a product with the float32
+        # reciprocal; a true division rounds otherwise for ~15-50% of values
+        scale = float(np.float32(1.0) / keep)
         col = 0
         for layer in self.dense[:-1]:
             x = torch.relu(layer(x))
             if self.training and self.dropout > 0.0:
-                mask = noise[:, col : col + x.shape[1]] < keep
-                x = torch.where(mask, x / keep, 0.0)
+                mask = noise[:, col : col + x.shape[1]] < float(keep)
+                x = torch.where(mask, x * scale, 0.0)
                 col += x.shape[1]
         return torch.softmax(self.dense[-1](x), dim=-1)
 
-    def init_like_flax(self, generator: torch.Generator) -> None:
-        """lecun_normal kernels, zero biases (BN starts at scale 1, bias 0)."""
+    def init_like_flax(self, key: np.ndarray) -> None:
+        """flax's ``model.init(key)``: each ``Dense_k`` kernel is the
+        ``lecun_normal`` draw of that scope's first ``make_rng('params')``,
+        biases are zero (BN starts at scale 1, bias 0)."""
         with torch.no_grad():
-            for layer in self.dense:
-                fan_in = layer.weight.shape[1]
-                # std of the truncated normal on [-2, 2] is 0.8796 of its sigma
-                std = np.sqrt(1.0 / fan_in) / 0.87962566103423978
-                w = torch.empty(fan_in, layer.weight.shape[0])
-                nn.init.trunc_normal_(w, std=std, a=-2.0 * std, b=2.0 * std, generator=generator)
-                layer.weight.copy_(w.T)
+            for k, layer in enumerate(self.dense):
+                shape = (layer.weight.shape[1], layer.weight.shape[0])
+                w = lecun_normal(flax_rng(key, f"Dense_{k}", 1), shape)
+                layer.weight.copy_(torch.from_numpy(np.ascontiguousarray(w.T)))
                 layer.bias.zero_()
+
+    def dropout_keys(self, subs: np.ndarray) -> np.ndarray:
+        """The key of each Dropout module's mask under each step's ``sub``
+        key: uint32 [steps, layers, 2]."""
+        n = len(self.dense) - 1
+        return np.stack([flax_rng(subs, f"Dropout_{i}", 1) for i in range(n)], axis=1)
 
 
 class Adam:
@@ -145,9 +157,12 @@ class Adam:
 
 
 # steps that run eagerly before a step is captured as a CUDA graph (the
-# warm-up that lazy initialisation needs), and dropout draws per block
+# warm-up that lazy initialisation needs); dropout uniforms per block of
+# steps (at most 64 steps, at most 2**22 values: the threefry rounds hold
+# a few int64 temporaries of that size)
 WARMUP_STEPS = 3
 NOISE_BLOCK = 64
+NOISE_BLOCK_VALUES = 1 << 22
 
 
 def _scaled_training_params(n_samples, base_lr=0.001, max_batch=4096, min_batch=128):
@@ -208,10 +223,11 @@ class BinaryClassifier:
 
         rng_np = np.random.default_rng(self.random_state)
         seed = int(rng_np.integers(0, 2**31)) if self.random_state is not None else 0
+        key = prng_key(seed)
         if self.model is None or self.input_dim != x.shape[1]:
             self.input_dim = x.shape[1]
             model = FeedForwardNN(self.input_dim, self.layers, y.shape[1], self.dropout)
-            model.init_like_flax(torch.Generator().manual_seed(seed))
+            model.init_like_flax(key)
             self.model = model.to(self.device)
         model = self.model
 
@@ -222,39 +238,59 @@ class BinaryClassifier:
         bs = min(self.batch_size, len(train_idx))
         num_batches = max(len(train_idx) // bs, 1)
         starts = [rng_np.permutation(num_batches) * bs for _ in range(self.epochs)]
+        dropout_keys = None
+        if self.dropout > 0.0:
+            # JAX's scan pads each epoch to a power of two of steps and
+            # splits the key on the padded steps too
+            nb_pad = 1 << int(np.ceil(np.log2(num_batches)))
+            subs = split_chain(key, self.epochs * nb_pad)
+            real = (np.arange(self.epochs)[:, None] * nb_pad + np.arange(num_batches)).reshape(-1)
+            dropout_keys = torch.from_numpy(model.dropout_keys(subs[real]).astype(np.int64)).to(self.device)
 
         xt = torch.from_numpy(x[train_idx]).to(self.device)
         yt = torch.from_numpy(y[train_idx].astype(np.float32)).to(self.device)
         model.train()
-        epoch_loss = self._train(model, xt, yt, starts, bs, torch.Generator(device=self.device).manual_seed(seed))
+        epoch_loss = self._train(model, xt, yt, starts, bs, dropout_keys)
         model.eval()
         self.n_steps = self.epochs * num_batches
         # the only read of the device in a fit
         self.metrics["train_loss"].extend(torch.stack(epoch_loss).cpu().tolist())
         self._fitted = True
 
-    def _train(self, model, xt, yt, starts, bs, generator) -> list:
+    def _train(self, model, xt, yt, starts, bs, dropout_keys) -> list:
         """Every optimiser step of a fit, batch rows ``starts[epoch][k]`` on;
-        returns the loss of each epoch's last step (on the device)."""
+        ``dropout_keys`` (int64 [steps, layers, 2] on the device, or None at
+        dropout 0) give each step's masks. Returns the loss of each epoch's
+        last step (on the device)."""
         dev = self.device
         on_card = dev.type == "cuda"
         opt = Adam(model.parameters(), float(self.learning_rate), float(self.weight_decay))
         x_in = torch.empty((bs, xt.shape[1]), device=dev)
         y_in = torch.empty((bs, yt.shape[1]), device=dev)
-        width = sum(self.layers) if self.dropout > 0.0 else 0
+        width = sum(self.layers) if dropout_keys is not None else 0
         noise = torch.empty((bs, width), device=dev)
+        per_block = max(1, min(NOISE_BLOCK, NOISE_BLOCK_VALUES // max(bs * width, 1)))
         block: list = []
+        drawn = [0]
 
         def load(s: int) -> None:
             x_in.copy_(xt[s : s + bs])
             y_in.copy_(yt[s : s + bs])
             if width:
                 if not block:
-                    block.extend(torch.rand((NOISE_BLOCK, bs, width), generator=generator, device=dev).unbind(0))
+                    keys = dropout_keys[drawn[0] : drawn[0] + per_block]
+                    drawn[0] += len(keys)
+                    layers = [uniform_torch(keys[:, i], (bs, h)) for i, h in enumerate(self.layers)]
+                    block.extend(torch.cat(layers, dim=2).unbind(0))
                 noise.copy_(block.pop(0))
 
+        # jnp.clip's gradient: half at a bound (``clamp`` passes all of it),
+        # which matters once the softmax saturates onto 1 - 1e-7
+        p_lo = torch.tensor(1e-7, device=dev)
+        p_hi = torch.tensor(1.0 - 1e-7, device=dev)
+
         def step():
-            p = model(x_in, noise).clamp(1e-7, 1.0 - 1e-7)
+            p = torch.minimum(torch.maximum(model(x_in, noise), p_lo), p_hi)
             loss = -(y_in * torch.log(p) + (1.0 - y_in) * torch.log(1.0 - p)).mean()
             loss.backward()
             opt.step()

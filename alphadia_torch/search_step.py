@@ -13,13 +13,15 @@
   run whose ``psm.parquet`` exists, errors are collected per run unless
   ``general.fail_fast``.
 
-``run()`` ends after the per-run files: the cross-run aggregation
-(``SearchPlanOutput``: precursor, protein and quant tables across runs)
-comes with the next slice of the port. Settings whose code comes with a
-later slice raise ``NotPortedError`` naming it, before any work: several
-hosts, ``general.profile_directory``, ``transfer_library.enabled``,
-``library_multiplexing.enabled``, a library that needs prediction,
-``general.save_library`` / ``save_flat_library`` (HDF).
+``run()`` ends with the cross-run outputs of every raw path's quant
+folder (``SearchPlanOutput.build``: ``precursors``, the protein groups and
+their FDR, ``stat.tsv``, ``internal.tsv``, the LFQ matrices), on the host;
+under ``general.fail_fast`` a failed raw file's error is raised before it.
+Settings whose code comes with a later slice raise ``NotPortedError``
+naming it, before any work: several hosts, ``general.profile_directory``,
+``transfer_library.enabled``, ``library_multiplexing.enabled``, a library
+that needs prediction, ``general.save_library`` / ``save_flat_library``
+(HDF).
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ from alphadia_torch.library.harmonize import AnnotateFasta, IsotopeGenerator, Pr
 from alphadia_torch.library.loader import DynamicLoader
 from alphadia_torch.library.pipeline import ProcessingPipeline
 from alphadia_torch.library.speclib import SpecLibFlat
+from alphadia_torch.outputs.search_plan_output import SearchPlanOutput
 from alphadia_torch.reporting import PROGRESS, init_logging
 from alphadia_torch.utils.device import resolve_device
 from alphadia_torch.utils.parquet import write_parquet
@@ -92,17 +95,18 @@ class SearchStep:
         general = self.config["general"]
         if int(os.environ.get("WORLD_SIZE", "1")) > 1:
             raise NotPortedError(
-                "searching on several hosts or cards comes with the multi-GPU slice of the port (ROADMAP queue 1)"
+                "searching on several hosts or cards comes with the multi-GPU slice of the port "
+                "(ROADMAP queue 1 item 7)"
             )
         if general.get("profile_directory"):
             raise NotPortedError(
                 "general.profile_directory: the per-file profiler trace comes with the profiling slice of the port "
-                "(ROADMAP queue 1)"
+                "(ROADMAP queue 1 item 8)"
             )
         if self.config["transfer_library"]["enabled"]:
             raise NotPortedError(
                 "transfer_library.enabled: the transfer requantification comes with the requant slice of the port "
-                "(ROADMAP queue 1)"
+                "(ROADMAP queue 1 item 5)"
             )
 
     def load_library(self) -> SpecLibFlat:
@@ -113,17 +117,19 @@ class SearchStep:
         predict = self.config["library_prediction"]["enabled"]
         for key in ("save_library", "save_flat_library"):
             if self.config["general"][key]:
-                raise NotPortedError(f"general.{key}: libraries in HDF come with the HDF slice of the port (ROADMAP queue 1)")
+                raise NotPortedError(
+                    f"general.{key}: libraries in HDF come with the HDF slice of the port (ROADMAP queue 1 item 4)"
+                )
         if self.config["library_multiplexing"]["enabled"]:
             raise NotPortedError(
                 "library_multiplexing.enabled: the multiplexed library and its requant come with the requant slice "
-                "of the port (ROADMAP queue 1)"
+                "of the port (ROADMAP queue 1 item 5)"
             )
         if not lib_path:
             if fasta_paths and predict:
                 raise NotPortedError(
                     "a library digested from FASTA and predicted comes with the prediction slice of the port "
-                    "(ROADMAP queue 1)"
+                    "(ROADMAP queue 1 item 6)"
                 )
             raise NoLibraryAvailableError()
 
@@ -131,7 +137,7 @@ class SearchStep:
         if predict or lib.fragment_intensity is None or "rt" not in lib.precursor_df:
             raise NotPortedError(
                 "this library needs predicted retention times or fragment intensities: prediction comes with the "
-                "prediction slice of the port (ROADMAP queue 1)"
+                "prediction slice of the port (ROADMAP queue 1 item 6)"
             )
         steps = [PrecursorInitializer(self.config["library_loading"]["drop_decoys"])]
         if fasta_paths:
@@ -170,6 +176,9 @@ class SearchStep:
                 if self.config["general"]["fail_fast"]:
                     logger.error("fail_fast: skipping remaining raw files")
                     raise
+
+        folder_list = [quant_dir / Path(p).stem for p in list(self.config["raw_paths"] or [])]
+        SearchPlanOutput(self.config, self.output_folder).build(folder_list, self.spectral_library)
 
     def _process_raw_file(self, raw_path: str, raw_name: str, quant_dir: Path) -> None:
         per_file_seed = int(self._np_rng.integers(0, 2**31)) if self.config["general"]["random_state"] is not None else None

@@ -15,10 +15,31 @@ from __future__ import annotations
 import csv
 from pathlib import Path
 
+import numpy as np
+
 COLUMNS = (
     "ModifiedPeptide", "PrecursorCharge", "PrecursorMz", "Tr_recalibrated", "IonMobility", "ProteinGroups", "Genes",
     "FragmentMz", "RelativeIntensity", "FragmentType", "FragmentCharge", "FragmentSeriesNumber",
 )
+
+
+def assign_proteins(n: int, seed: int, per_protein: int = 4, shared: float = 0.1) -> tuple[np.ndarray, np.ndarray]:
+    """(proteins, genes) of ``n`` peptides as a digest gives them: the
+    peptides dealt at random to ``ceil(n / per_protein)`` proteins, and a
+    ``shared`` share of them also to a second protein (``"P00001;P00042"``,
+    the names sorted), so that protein grouping and parsimony have work to
+    do. Made from ``seed``."""
+    rng = np.random.default_rng(seed)
+    n_prot = max(-(-n // per_protein), 2)
+    owner = rng.permutation(n) % n_prot
+    second = (owner + 1 + rng.integers(0, n_prot - 1, n)) % n_prot
+    is_shared = rng.random(n) < shared
+    proteins, genes = [], []
+    for a, b, sh in zip(owner.tolist(), second.tolist(), is_shared.tolist()):
+        ids = sorted({a, b}) if sh else [a]
+        proteins.append(";".join(f"P{i:05d}" for i in ids))
+        genes.append(";".join(f"G{i:05d}" for i in ids))
+    return np.array(proteins, dtype=object), np.array(genes, dtype=object)
 
 
 def _num(v) -> str:

@@ -18,9 +18,10 @@ str (``U`` or object)        BYTE_ARRAY    STRING (UTF8)
 ===========================  ============  ==========================
 
 so pyarrow reads every column back with its dtype. The reader reads these
-files and files that pyarrow writes without compression and without
-dictionary encoding (several data pages a column, nulls). A null reads as
-NaN in a float column and as None in a text column.
+files and the flat files that pyarrow writes with its defaults (Snappy,
+dictionary pages) or without compression (several data pages a column,
+nulls). A null reads as NaN in a float column and as None in a text
+column.
 """
 
 from __future__ import annotations
@@ -36,9 +37,9 @@ _MAGIC = b"PAR1"
 BOOLEAN, INT32, INT64, FLOAT, DOUBLE, BYTE_ARRAY = 0, 1, 2, 4, 5, 6
 REQUIRED, OPTIONAL = 0, 1
 UTF8, UINT_8, UINT_16, UINT_32, UINT_64, INT_8, INT_16, INT_32, INT_64 = 0, 11, 12, 13, 14, 15, 16, 17, 18
-PLAIN, RLE = 0, 3
-UNCOMPRESSED = 0
-DATA_PAGE = 0
+PLAIN, PLAIN_DICTIONARY, RLE, RLE_DICTIONARY = 0, 2, 3, 8
+UNCOMPRESSED, SNAPPY = 0, 1
+DATA_PAGE, DICTIONARY_PAGE = 0, 2
 
 # thrift compact protocol type ids
 _T_TRUE, _T_FALSE, _T_BYTE, _T_I16, _T_I32, _T_I64, _T_DOUBLE, _T_BINARY, _T_LIST, _T_SET, _T_MAP, _T_STRUCT = (
@@ -214,7 +215,8 @@ def _column_type(values: np.ndarray):
             return FLOAT, None, None, present.astype("<f4").tobytes(), null
         return DOUBLE, None, None, present.astype("<f8").tobytes(), null
     if kind in "UO":
-        null = np.array([v is None for v in values], bool)
+        # None, and NaN as pandas fills a text column, are nulls
+        null = np.array([v is None or (isinstance(v, float) and v != v) for v in values], bool)
         parts = []
         for v in values[~null]:
             if not isinstance(v, str):
@@ -312,6 +314,8 @@ def _hybrid(buf: bytes, pos: int, end: int, bit_width: int, count: int) -> np.nd
     filled = 0
     r = _Reader(buf, pos)
     width_bytes = (bit_width + 7) // 8
+    if bit_width == 0:
+        return out
     while filled < count and r.pos < end:
         head = r.varint()
         if head & 1:
@@ -371,9 +375,50 @@ def _numpy_dtype(element: dict):
     return np.dtype(np.int32 if physical == INT32 else np.int64)
 
 
+def _snappy(raw: bytes) -> bytes:
+    """A raw Snappy block decompressed (the codec pyarrow writes by
+    default): a varint length, then literals and back-references."""
+    r = _Reader(raw, 0)
+    out = bytearray()
+    size = r.varint()
+    pos = r.pos
+    while pos < len(raw):
+        tag = raw[pos]
+        kind = tag & 3
+        pos += 1
+        if kind == 0:
+            length = (tag >> 2) + 1
+            if length > 60:
+                extra = length - 60
+                length = int.from_bytes(raw[pos : pos + extra], "little") + 1
+                pos += extra
+            out += raw[pos : pos + length]
+            pos += length
+            continue
+        if kind == 1:
+            length = ((tag >> 2) & 7) + 4
+            offset = ((tag >> 5) << 8) | raw[pos]
+            pos += 1
+        else:
+            width = 2 if kind == 2 else 4
+            length = (tag >> 2) + 1
+            offset = int.from_bytes(raw[pos : pos + width], "little")
+            pos += width
+        start = len(out) - offset
+        if offset >= length:
+            out += out[start : start + length]
+        else:  # an overlapping copy repeats the last ``offset`` bytes
+            for i in range(length):
+                out.append(out[start + i])
+    if len(out) != size:
+        raise ValueError("corrupt snappy block")
+    return bytes(out)
+
+
 def read_parquet(path: str | Path) -> dict:
-    """A flat Parquet file (no nesting, no compression, no dictionary
-    pages) as a column dict with the dtypes of the table above."""
+    """A flat Parquet file (no nesting; uncompressed or Snappy; PLAIN or
+    dictionary-encoded v1 data pages, as this writer and pyarrow's defaults
+    write them) as a column dict with the dtypes of the table above."""
     buf = Path(path).read_bytes()
     if buf[:4] != _MAGIC or buf[-4:] != _MAGIC:
         raise ValueError(f"{path} is not a parquet file")
@@ -387,33 +432,44 @@ def read_parquet(path: str | Path) -> dict:
     for rg in meta.get(4, []):
         for element, chunk in zip(leaves, rg[1]):
             cm = chunk[3]
-            if cm.get(4, UNCOMPRESSED) != UNCOMPRESSED:
-                raise ValueError(f"{path}: compressed column chunks are not read")
+            codec = cm.get(4, UNCOMPRESSED)
+            if codec not in (UNCOMPRESSED, SNAPPY):
+                raise ValueError(f"{path}: compression codec {codec} (only none and Snappy) is not read")
             physical = cm[1]
             optional = element.get(3, REQUIRED) == OPTIONAL
             n_total = cm[5]
             pos = cm.get(11) or cm[9]
             read = 0
+            dictionary = None
             while read < n_total:
                 r = _Reader(buf, pos)
                 header = r.struct()
-                body = r.pos
+                page = buf[r.pos : r.pos + header[3]]
+                pos = r.pos + header[3]
+                if codec == SNAPPY:
+                    page = _snappy(page)
+                if header[1] == DICTIONARY_PAGE:
+                    dictionary, _ = _plain(page, 0, physical, header[7][1])
+                    continue
                 if header[1] != DATA_PAGE:
-                    raise ValueError(f"{path}: page type {header[1]} (only v1 data pages without dictionary) is not read")
+                    raise ValueError(f"{path}: page type {header[1]} (only v1 data and dictionary pages) is not read")
                 dph = header[5]
                 n = dph[1]
-                if dph[2] != PLAIN:
-                    raise ValueError(f"{path}: encoding {dph[2]} (only PLAIN) is not read")
-                p = body
+                p = 0
                 present = np.ones(n, bool)
                 if optional:
-                    (length,) = struct.unpack_from("<i", buf, p)
-                    present = _hybrid(buf, p + 4, p + 4 + length, 1, n) == 1
+                    (length,) = struct.unpack_from("<i", page, p)
+                    present = _hybrid(page, p + 4, p + 4 + length, 1, n) == 1
                     p += 4 + length
-                values, _ = _plain(buf, p, physical, int(present.sum()))
+                n_present = int(present.sum())
+                if dph[2] == PLAIN:
+                    values, _ = _plain(page, p, physical, n_present)
+                elif dph[2] in (PLAIN_DICTIONARY, RLE_DICTIONARY) and dictionary is not None:
+                    values = dictionary[_hybrid(page, p + 1, len(page), page[p], n_present)]
+                else:
+                    raise ValueError(f"{path}: encoding {dph[2]} (only PLAIN and dictionary) is not read")
                 parts[element[4].decode()].append((values, present))
                 read += n
-                pos = body + header[3]
     out = {}
     for element in leaves:
         name = element[4].decode()

@@ -59,7 +59,18 @@ Phases, in order; any failure exits non-zero:
    1% FDR gated against the JAX package's readings of the same kind of
    inputs, the kernel's launches counted and each pass's first launch of
    every step and of the final extraction held against the plain version;
-9. the ``{"kernels": [...]}`` line, then the card's name and power limit,
+9. the CLI across two runs: ``alphadia-torch`` (``cli.run``) on two runs
+   of the search step's quarter 3D world written as mzML, with a TSV
+   library whose protein groups overlap, at the default config on the
+   card: the library build, each run's search step and the cross-run
+   outputs timed (``SearchPlanOutput.build``: read, grouping, protein FDR
+   with its MLP fit, LFQ per level, writes); the tables read back, the
+   MBR library's refusal logged once; the kernel's launches per run, each
+   pass's first launch of every step held against the plain version; the
+   IDs per run, the protein groups, the LFQ groups and the run-to-run
+   ratio gated against the JAX package's CLI on the same inputs, the
+   tolerances against the card's own search step on the first run;
+10. the ``{"kernels": [...]}`` line, then the card's name and power limit,
    then the ``{"ok": true, ...}`` line last.
 """
 
@@ -1565,6 +1576,245 @@ def phase8(root, label, tag, spectra, prec, frag, name, card, launches, secs, tm
     return first_launches_against_plain("[8]", label, rec.calls)
 
 
+# phase [9], the CLI on two runs: the JAX package's CLI on the CPU on the
+# same inputs (two runs of the search step's quarter 3D world from
+# sequences, acquisition seeds 101 / 202, intensity 1.0 / 1.6, RT shift 0 /
+# 4 s, a TSV library whose ~4 peptides a protein and 10% shared peptides
+# give grouping and parsimony work) at random states 0, 1 and 2
+# (`PYTHONPATH=.:tests python tests/test_torch_cli.py --random-state 0 1 2`;
+# a JAX CLI run of two bench-size runs on a CPU is too large to take as a
+# reading, so the card reads that same quarter world). Gates: identified at least the least
+# less 0.005 and false at most max(0.02, the largest + 0.005) per run, as
+# phase [8]; protein groups at 1% protein FDR and the groups each LFQ level
+# quantifies within 2% of JAX's band; the run-to-run log2 ratio of
+# pg.matrix: its median within 0.05 of JAX's band, its MAD within 20%
+CLI_JAX_READINGS = {  # random states 0, 1, 2
+    "identified_run_0": [0.9984114376489277, 0.9984114376489277, 0.9984114376489277],
+    "false_run_0": [0.0367816091954023, 0.03456221198156682, 0.03896103896103896],
+    "identified_run_1": [1.0, 1.0, 1.0],
+    "false_run_1": [0.027906976744186046, 0.03018575851393189, 0.021756021756021756],
+    "protein_groups": [520, 522, 519],
+    "groups_precursor": [1318, 1320, 1320], "groups_peptide": [1318, 1320, 1320], "groups_pg": [520, 522, 519],
+    "log2_ratio_median": [-0.004040286891067104, -0.004040286891067184, -0.005139640275093222],
+    "log2_ratio_mad": [0.007717596835504182, 0.007775617836572698, 0.007151834945107084],
+}
+CLI_REL_BAND = 0.02
+CLI_RATIO_MEDIAN_TOL = 0.05
+CLI_RATIO_MAD_REL = 0.20
+CLI_TOL_REL = 0.05
+
+
+def band(values, rel=0.0, add=0.0):
+    """[least, largest] of ``values`` widened by ``rel`` of themselves and
+    by ``add``."""
+    return min(values) * (1 - rel) - add, max(values) * (1 + rel) + add
+
+
+def phase9(root, name, card, launches, secs, tmp):
+    """``alphadia-torch`` (``cli.run``) on two runs at the default config,
+    on the card: the walls (library build, each run's search step,
+    ``SearchPlanOutput.build`` and its stages), the kernel's launches per
+    run (each pass's first launch of every step held against the plain
+    version), the cross-run tables read back, and the gates above."""
+    import logging
+
+    import torch
+
+    import alphadia_torch.cli as cli
+    import alphadia_torch.search_step as search_step
+    from alphadia_torch.ops import xic_cuda
+    from alphadia_torch.outputs.search_plan_output import SearchPlanOutput
+    from alphadia_torch.utils.parquet import read_parquet
+    from alphadia_torch.utils.tsv import read_tsv
+    from alphadia_torch.workflow.peptidecentric.optimization_handler import OptimizationHandler
+
+    sys.path.insert(0, str(root / "tests"))
+    from torch_workflow_worlds import CLI_WORLD, cli_readings, write_cli_inputs
+
+    t0 = time.perf_counter()
+    (tmp / "cli_inputs").mkdir()
+    raws, lib, truth, cycle_rts = write_cli_inputs(tmp / "cli_inputs", CLI_WORLD)
+    shared = np.mean([";" in p for p in truth["proteins"]])
+    log(
+        f"[9] inputs: {len(raws)} runs of {CLI_WORLD['n_peptides']} peptides, {CLI_WORLD['n_windows']} windows, "
+        f"{CLI_WORLD['n_cycles']} cycles as mzML ({sum(r.stat().st_size for r in raws) / 2**20:.1f} MiB), library "
+        f"{lib.stat().st_size / 2**20:.1f} MiB: {len(set(';'.join(truth['proteins']).split(';')))} proteins, "
+        f"{shared:.3f} of the peptides shared; made in {time.perf_counter() - t0:.2f} s"
+    )
+
+    captured = {"runs": [], "walls": []}
+    workflow_cls = search_step.PeptideCentricWorkflow
+    process_batch = OptimizationHandler._process_batch
+    process_raw = search_step.SearchStep._process_raw_file
+    load_library = search_step.SearchStep.load_library
+    build = SearchPlanOutput.build
+
+    class Captured(workflow_cls):
+        def load(self, *a, **k):
+            rec.stage = "load"
+            captured["runs"].append((self, len(rec.calls)))
+            return super().load(*a, **k)
+
+        def extraction(self):
+            rec.stage = "extraction"
+            return super().extraction()
+
+    def staged(handler):
+        rec.stage = f"step{len(handler.step_log)}"
+        return process_batch(handler)
+
+    def timed_raw(self, *a, **k):
+        t = time.perf_counter()
+        try:
+            return process_raw(self, *a, **k)
+        finally:
+            torch.cuda.synchronize()
+            captured["walls"].append(time.perf_counter() - t)
+
+    def timed_library(self):
+        t = time.perf_counter()
+        out = load_library(self)
+        captured["library_s"] = time.perf_counter() - t
+        return out
+
+    def kept_build(self, *a, **k):
+        captured["output"] = self
+        return build(self, *a, **k)
+
+    class Count(logging.Handler):
+        def __init__(self):
+            super().__init__(logging.WARNING)
+            self.mbr = []
+
+        def emit(self, record):
+            if "could not build MBR library" in record.getMessage():
+                self.mbr.append(record.getMessage())
+
+    counter = Count()
+    output_logger = logging.getLogger("alphadia_torch.outputs.search_plan_output")
+    output_logger.addHandler(counter)
+    out = tmp / "cli_out"
+    argv = ["-o", str(out), "-f", str(raws[0]), "-f", str(raws[1]), "-l", str(lib), "--config-dict",
+            json.dumps({"general": {"random_state": 0, "log_level": "PROGRESS"}})]
+    search_step.PeptideCentricWorkflow = Captured
+    OptimizationHandler._process_batch = staged
+    search_step.SearchStep._process_raw_file = timed_raw
+    search_step.SearchStep.load_library = timed_library
+    SearchPlanOutput.build = kept_build
+    code = 0
+    try:
+        with Recorder() as rec:
+            torch.cuda.synchronize()
+            xic_cuda.launches = 0
+            t0 = time.perf_counter()
+            try:
+                cli.run(argv)
+            except SystemExit as e:
+                code = e.code
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            n_launch = xic_cuda.launches
+    finally:
+        search_step.PeptideCentricWorkflow = workflow_cls
+        OptimizationHandler._process_batch = process_batch
+        search_step.SearchStep._process_raw_file = process_raw
+        search_step.SearchStep.load_library = load_library
+        SearchPlanOutput.build = build
+        output_logger.removeHandler(counter)
+    log(f"[9] alphadia-torch {' '.join(a if len(a) < 60 else '...' for a in argv)}: exit {code}, wall {wall:.4f} s")
+    if code != 0:
+        raise AssertionError(f"the CLI exited {code}")
+    if n_launch != len(rec.calls) or n_launch == 0:
+        raise AssertionError(f"CLI: {n_launch} kernel launches counted, {len(rec.calls)} wrapper calls recorded")
+    if len(captured["runs"]) != 2:
+        raise AssertionError(f"CLI: {len(captured['runs'])} runs searched")
+
+    t = captured["output"].timings
+    log(
+        f"[9] walls: library build {captured['library_s']:.4f} s; search step run_0 {captured['walls'][0]:.4f} s, "
+        f"run_1 {captured['walls'][1]:.4f} s; SearchPlanOutput.build {t['build_s']:.4f} s: read {t['read_s']:.4f} s, "
+        f"grouping {t['grouping_s']:.4f} s, protein FDR {t['protein_fdr_s']:.4f} s (MLP fit {t.get('mlp_fit_s', np.nan):.4f} "
+        f"s, {t.get('mlp_epochs')} epochs), stat and internal {t['stat_internal_s']:.4f} s, LFQ "
+        + ", ".join(f"{lv} {t[f'lfq_{lv}_s']:.4f} s ({t[f'lfq_{lv}_groups']} groups)" for lv in ("precursor", "peptide", "pg"))
+        + f", MBR library {t['mbr_s']:.4f} s, precursors write {t['write_precursors_s']:.4f} s ({name}, {card})"
+    )
+
+    files = ("precursors.parquet", "pg.matrix.parquet", "precursor.matrix.parquet", "peptide.matrix.parquet", "stat.tsv",
+             "internal.tsv")
+    rows = {}
+    for f in files:
+        if not (out / f).exists():
+            raise AssertionError(f"CLI: {f} is missing")
+        frame = read_tsv(out / f) if f.endswith(".tsv") else read_parquet(out / f)
+        rows[f] = len(next(iter(frame.values())))
+    log(f"[9] files read back (rows): {json.dumps(rows)}; MBR warnings {len(counter.mbr)}: {counter.mbr[:1]}")
+    if len(counter.mbr) != 1 or "ROADMAP queue 1 item 4" not in counter.mbr[0]:
+        raise AssertionError("CLI: the MBR library's refusal was not logged once")
+
+    worst = [0.0, 0.0]
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=DEVICE)
+    starts = [i for _, i in captured["runs"]] + [len(rec.calls)]
+    for r, (a, b) in enumerate(zip(starts[:-1], starts[1:])):
+        calls = rec.calls[a:b]
+        launches[f"cli_run_{r}"] = len(calls)
+        w = first_launches_against_plain("[9]", f"run_{r}", calls)
+        worst = [max(worst[0], w[0]), max(worst[1], w[1])]
+        per_pass = summed_device_ms(calls, flush)
+        for (stage, pass_name), acc in sorted(per_pass.items()):
+            log(
+                f"[9] run_{r} kernel, {stage} {pass_name}: {acc['launches']} launches, {acc['ms']:.4f} ms warm "
+                f"({acc['bound_ms'] / acc['ms']:.2f} of bound), L2 flushed {acc['flushed_ms']:.4f} ms, bound "
+                f"{acc['bound_ms']:.4f} ms ({acc['bytes'] / 1e6:.2f} MB) ({name}, {card})"
+            )
+        log(
+            f"[9] run_{r} kernel: {len(calls)} launches, summed {sum(x['ms'] for x in per_pass.values()):.4f} ms warm, "
+            f"bound {sum(x['bound_ms'] for x in per_pass.values()):.4f} ms ({name}, {card})"
+        )
+    del flush
+    secs["cli"] = wall
+
+    got = cli_readings(out, truth, cycle_rts)
+    jax = CLI_JAX_READINGS
+    checks = []
+    for r in range(2):
+        lo = min(jax[f"identified_run_{r}"]) - 0.005
+        hi = max(0.02, max(jax[f"false_run_{r}"]) + 0.005)
+        checks += [(f"identified_run_{r}", got[f"identified_run_{r}"], (lo, 1.0)),
+                   (f"false_run_{r}", got[f"false_run_{r}"], (0.0, hi))]
+    for k in ("protein_groups", "groups_precursor", "groups_peptide", "groups_pg"):
+        checks.append((k, got[k], band(jax[k], rel=CLI_REL_BAND)))
+    checks.append(("log2_ratio_median", got["log2_ratio_median"], band(jax["log2_ratio_median"], add=CLI_RATIO_MEDIAN_TOL)))
+    checks.append(("log2_ratio_mad", got["log2_ratio_mad"], band(jax["log2_ratio_mad"], rel=CLI_RATIO_MAD_REL)))
+
+    # the tolerances in stat.tsv: each run's within 5% of its workflow's own
+    # final state, and run 0's within 5% of the card's own search step on
+    # run 0 alone (phase [8]'s kind of reading: the same inputs and random
+    # state, so the CLI's first run repeats it; the RT optimizer's outcome
+    # is bimodal across runs, JAX's run 0 / run 1 at random state 0: 196.2983
+    # / 33.7868 s, so the runs are not held to each other)
+    single = search_step.SearchStep(str(tmp / "cli_single"), config={
+        "library_path": str(lib), "raw_paths": [str(raws[0])], "general": {"random_state": 0, "log_level": "PROGRESS"}})
+    single.run()
+    stat = read_tsv(tmp / "cli_single" / "stat.tsv")
+    for r, (wf, _) in enumerate(captured["runs"]):
+        for k in ("ms1_error", "ms2_error", "rt_error"):
+            refs = [("workflow", float(getattr(wf.optimization_manager, k)))]
+            if r == 0:
+                refs.append(("single step", float(stat[f"optimization.{k}"][0])))
+            for what, ref in refs:
+                checks.append((f"{k}_run_{r} against its {what}", got[f"{k}_run_{r}"],
+                               (ref * (1 - CLI_TOL_REL), ref * (1 + CLI_TOL_REL))))
+    failed = []
+    for k, v, (lo, hi) in checks:
+        ok = lo <= v <= hi
+        log(f"[9] gate {k}: {v:.4f} in [{lo:.4f}, {hi:.4f}] {'ok' if ok else 'FAILED'} ({name}, {card})")
+        if not ok:
+            failed.append(k)
+    if failed:
+        raise AssertionError(f"CLI: gates failed: {failed}")
+    return worst
+
+
 # ---------------------------------------------------------------------------
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1737,9 +1987,14 @@ def main(argv=None) -> int:
             w = phase8(root, label, tag, spec8, prec, frag, name, card, launches, secs, tmp, batch_size=batch)
             max_abs_err = max(max_abs_err, w[0])
             del spec8, prec, frag
-    log(f"[8] kernel launches per run: {json.dumps(launches)} ({name}, {card})")
+        log(f"[8] kernel launches per run: {json.dumps(launches)} ({name}, {card})")
 
-    # ---- 9. summary lines ---------------------------------------------------
+        # ---- 9. the CLI across two runs ---------------------------------------
+        w = phase9(root, name, card, launches, secs, tmp)
+        max_abs_err = max(max_abs_err, w[0])
+    log(f"[9] kernel launches per run: {json.dumps(launches)} ({name}, {card})")
+
+    # ---- 10. summary lines --------------------------------------------------
     kernels = {
         "kernels": [
             {

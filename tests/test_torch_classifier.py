@@ -10,18 +10,30 @@ the CPU.
   atol 1e-4 / rtol 1e-3 (an unbiased running variance, another
   initialisation or another order of the numpy draws fails it);
 - a state dict saved by either package loads in the other with the same
-  probabilities (1e-6).
+  probabilities (1e-6);
+- JAX's random stream (``utils/jax_random``): ``PRNGKey``, ``split``,
+  ``fold_in``, bits, ``uniform``, ``bernoulli`` exactly, ``truncated_normal``
+  within 4 ulps; the port's fresh weights are
+  flax's ``model.init`` for seeds 0-2 (Dense kernels within 4 float32 ulps:
+  XLA's ``erfinv`` takes its own ``log1p``; biases zero), its dropout masks
+  are the ones flax's Dropout modules draw per step, and a fit at the
+  default dropout, fresh or from the packaged warm start, ends within 1e-4
+  of flax's ``predict_proba``.
 """
 
 import pickle
 from pathlib import Path
 
+import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
+import torch
 
 from alphadia_torch.convert import classifier_to_jax
-from alphadia_torch.models.classifier import BinaryClassifier
+from alphadia_torch.models.classifier import BinaryClassifier, FeedForwardNN
+from alphadia_torch.utils import jax_random
 from alphadia_tpu.models.classifier import BinaryClassifier as JaxBinaryClassifier
 from alphadia_tpu.models.classifier import FeedForwardNN as JaxFeedForwardNN
 
@@ -94,3 +106,87 @@ def test_state_dicts_load_across_packages():
     # pickling a classifier keeps its weights (the FDR manager's store)
     again = pickle.loads(pickle.dumps(ours))
     np.testing.assert_allclose(again.predict_proba(x), ours.predict_proba(x), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("seed", [0, 7, 2**31 - 1])
+def test_random_primitives_are_jax(seed):
+    key, ours = jax.random.PRNGKey(seed), jax_random.prng_key(seed)
+    assert (np.asarray(key) == ours).all()
+    assert (np.asarray(jax.random.split(key, 5)) == jax_random.split(ours, 5)).all()
+    subs, k = [], key
+    for _ in range(4):
+        k, sub = jax.random.split(k)
+        subs.append(np.asarray(sub))
+    assert (np.stack(subs) == jax_random.split_chain(ours, 4)).all()
+    assert (np.asarray(jax.random.fold_in(key, 3_000_000_000)) == jax_random.fold_in(ours, 3_000_000_000)).all()
+    assert (np.asarray(jax.random.bits(key, (7, 9))) == jax_random.random_bits(ours, (7, 9))).all()
+    assert (np.asarray(jax.random.uniform(key, (7, 9))) == jax_random.uniform(ours, (7, 9))).all()
+    assert (np.asarray(jax.random.uniform(key, (50,), minval=-0.3, maxval=2.5))
+            == jax_random.uniform(ours, (50,), -0.3, 2.5)).all()
+    assert (np.asarray(jax.random.bernoulli(key, 0.3, (40, 3))) == jax_random.bernoulli(ours, 0.3, (40, 3))).all()
+    uniform = jax_random.uniform_torch(torch.from_numpy(jax_random.split(ours, 3).astype(np.int64)), (4, 6)).numpy()
+    for j, sub in enumerate(jax.random.split(key, 3)):
+        assert (uniform[j] == np.asarray(jax.random.uniform(sub, (4, 6)))).all()
+    want = np.asarray(jax.random.truncated_normal(key, -2, 2, (300, 40)))
+    assert _ulps(jax_random.truncated_normal(ours, (300, 40)), want).max() <= 4
+
+
+def _ulps(a, b):
+    return np.abs(a.view(np.int32).astype(np.int64) - b.view(np.int32).astype(np.int64))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_fresh_weights_are_flax_init(seed):
+    d = 17
+    want = _flax_variables(d, seed=seed, dropout=0.001)["params"]
+    model = FeedForwardNN(d)
+    model.init_like_flax(jax_random.prng_key(seed))
+    got = classifier_to_jax(model.state_dict())["params"]
+    for k in range(5):
+        w, g = want[f"Dense_{k}"]["kernel"], got[f"Dense_{k}"]["kernel"]
+        assert w.shape == g.shape
+        assert _ulps(g, w).max() <= 4, f"Dense_{k}"
+        assert (g == w).mean() > 0.95
+        assert not got[f"Dense_{k}"]["bias"].any()
+
+
+class _Masks(nn.Module):
+    """Dropout modules named as FeedForwardNN's (Dropout_0..3 at the root)."""
+
+    rate: float
+
+    @nn.compact
+    def __call__(self, xs):
+        return [nn.Dropout(self.rate, deterministic=False)(x) for x in xs]
+
+
+def test_dropout_masks_are_flax_masks():
+    bs, layers, rate, seed = 16, (100, 50, 20, 5), 0.5, 4
+    key = jax.random.PRNGKey(seed)
+    subs = jax_random.split_chain(jax_random.prng_key(seed), 3)
+    keys = torch.from_numpy(FeedForwardNN(7, layers, dropout=rate).dropout_keys(subs).astype(np.int64))
+    for t in range(3):
+        key, sub = jax.random.split(key)
+        assert (np.asarray(sub) == subs[t]).all()
+        want = _Masks(rate).apply({}, [jnp.ones((bs, h)) for h in layers], rngs={"dropout": sub})
+        for i, h in enumerate(layers):
+            got = jax_random.uniform_torch(keys[t, i], (bs, h)).numpy() < 1.0 - rate
+            np.testing.assert_array_equal(got, np.asarray(want[i]) > 0, err_msg=f"step {t} layer {i}")
+
+
+@pytest.mark.parametrize("start", ["fresh", "packaged"])
+def test_default_dropout_fit_matches_flax(start):
+    if start == "fresh":
+        x, y = _data(n=1500)
+        theirs = JaxBinaryClassifier(random_state=0, epochs=2)
+        ours = BinaryClassifier(random_state=0, epochs=2, device="cpu")
+    else:
+        x, y = _data(n=1500, d=53)
+        theirs = JaxBinaryClassifier.from_state_dict(pickle.loads((REPO / "alphadia_tpu" / PACKAGED).read_bytes()))
+        ours = BinaryClassifier.from_state_dict(pickle.loads((REPO / "alphadia_torch" / PACKAGED).read_bytes()), "cpu")
+        for clf in (theirs, ours):
+            clf.random_state, clf.epochs = 0, 2
+    assert ours.dropout == theirs.dropout == 0.001
+    theirs.fit(x, y)
+    ours.fit(x, y)
+    np.testing.assert_allclose(ours.predict_proba(x), theirs.predict_proba(x), rtol=0, atol=1e-4)

@@ -7,8 +7,9 @@ extraction rerun on the card, which must give the same bits; the
 pipelined extraction against sequential selection and scoring, both
 enqueuing every batch before they wait for any, classifier fits on the
 card (one held to a fit on the CPU), the per-run workflow (load ->
-optimization -> extraction) and ``SearchStep`` (mzML and TSV library in,
-``psm.parquet`` out) on the card, each held to the same run on the CPU.
+optimization -> extraction), ``SearchStep`` (mzML and TSV library in,
+``psm.parquet`` out) and the CLI on two runs (``alphadia-torch``, the
+cross-run tables out) on the card, each held to the same run on the CPU.
 
 Marked ``gpu``: each test skips where no CUDA card is present, and the
 decision is taken inside the test. On the card the file needs neither JAX
@@ -466,3 +467,37 @@ def test_search_step_on_card_matches_the_cpu(card, tmp_path):
     assert cmp["steps"][0] == cmp["steps"][1]
     assert cmp["tolerance_rel"] <= 0.05
     assert cmp["jaccard"] >= 0.95 and cmp["ids"][1] > 100
+
+
+def test_cli_on_card_matches_the_cpu(card, tmp_path, monkeypatch):
+    """``alphadia-torch`` on the two runs of the CLI end-to-end world
+    (``tests/test_torch_cli.py``) on the card and on the CPU: exit 0 both,
+    the 1%-FDR precursor IDs of each run with a Jaccard overlap >= 0.95."""
+    import json
+
+    from alphadia_torch.cli import run
+    from alphadia_torch.utils.parquet import read_parquet
+    from torch_workflow_worlds import E2E_OVERRIDES, E2E_WORLD, write_cli_inputs
+
+    raws, lib, _, _ = write_cli_inputs(tmp_path, E2E_WORLD)
+    ids = {}
+    for device in ("cuda", "cpu"):
+        monkeypatch.setenv("ALPHADIA_TORCH_DEVICE", device)
+        out = tmp_path / device
+        argv = ["-o", str(out), "-f", str(raws[0]), "-f", str(raws[1]), "-l", str(lib),
+                "--config-dict", json.dumps(E2E_OVERRIDES)]
+        try:
+            run(argv)
+        except SystemExit as e:
+            assert e.code == 0, device
+        psm = read_parquet(out / "precursors.parquet")
+        keep = (psm["precursor.qval"] <= 0.01) & (psm["precursor.decoy"] == 0)
+        ids[device] = {
+            run_name: set(zip(psm["precursor.sequence"][keep & (psm["raw.name"] == run_name)],
+                              psm["precursor.charge"][keep & (psm["raw.name"] == run_name)].tolist()))
+            for run_name in ("run_0", "run_1")
+        }
+    for run_name in ("run_0", "run_1"):
+        a, b = ids["cuda"][run_name], ids["cpu"][run_name]
+        assert len(b) > 150
+        assert len(a & b) / len(a | b) >= 0.95, run_name

@@ -85,6 +85,20 @@ import alphadia_torch.utils.parquet
 import alphadia_torch.config.yaml_subset
 import alphadia_torch.testing.mzml_writer
 import alphadia_torch.testing.tsv_library
+import alphadia_torch.utils.jax_random
+import alphadia_torch.utils.tsv
+import alphadia_torch.validation
+import alphadia_torch.validation.schemas
+import alphadia_torch.outputs.df_builders
+import alphadia_torch.outputs.grouping
+import alphadia_torch.outputs.mlp
+import alphadia_torch.outputs.protein_fdr
+import alphadia_torch.outputs.quant
+import alphadia_torch.outputs.mbr
+import alphadia_torch.outputs.search_plan_output
+import alphadia_torch.fdr.fdrx
+import alphadia_torch.search_plan
+import alphadia_torch.cli
 cfg = alphadia_torch.config.load_default_config()
 assert cfg["tpu"]["gather_slab"] == 256
 loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
@@ -115,6 +129,8 @@ step.run()
 assert not step.errors, step.errors
 assert len(read_parquet(tmp / "out" / "quant" / "run" / "psm.parquet")["precursor_idx"]) > 100
 assert (tmp / "out" / "frozen_config.yaml").exists()
+for name in ("precursors.parquet", "pg.matrix.parquet", "stat.tsv", "internal.tsv"):
+    assert (tmp / "out" / name).exists(), name
 loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not loaded, loaded
 print("ok")
@@ -122,8 +138,9 @@ print("ok")
 
 
 def test_search_step_runs_without_the_blocked_packages(tmp_path):
-    """mzML in, TSV library, the search step on the CPU, parquet out: no
-    module of the path imports a blocked package, lazily or otherwise."""
+    """mzML in, TSV library, the search step on the CPU, the per-run parquet
+    and the cross-run tables out: no module of the path imports a blocked
+    package, lazily or otherwise."""
     proc = subprocess.run(
         [sys.executable, "-c", _BLOCKED_SEARCH % (str(REPO), str(REPO / "tests"), str(tmp_path))],
         capture_output=True, text=True, timeout=300,

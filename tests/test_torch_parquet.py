@@ -8,8 +8,10 @@ against pyarrow.
   its values (NaN as a null, as pandas writes it), and so does the port's
   reader.
 - Files pyarrow writes from pandas with ``compression=None,
-  use_dictionary=False`` (several data pages a column, nulls): the port's
-  reader gives pandas' values and dtypes.
+  use_dictionary=False`` (several data pages a column, nulls), and with
+  pandas' defaults (Snappy, dictionary pages), as the JAX package writes
+  its per-run files: the port's reader gives pandas' values and dtypes; a
+  codec it does not read (gzip) is refused.
 - Edge cases: an empty frame, empty and non-ASCII strings.
 """
 
@@ -125,8 +127,27 @@ def test_refuses_what_it_cannot_write(tmp_path):
         write_parquet({"a": np.zeros(2), "b": np.zeros(3)}, tmp_path / "l.parquet")
 
 
+@pytest.mark.parametrize("compression,dictionary", [("snappy", True), (None, True), ("snappy", False)])
+@pytest.mark.parametrize("n", [3, 4000])
+def test_port_reads_pyarrow_defaults(tmp_path, n, compression, dictionary):
+    frame = psm_like(n, seed=2)
+    path = tmp_path / "psm.parquet"
+    pd.DataFrame(frame).to_parquet(path, index=False, compression=compression, use_dictionary=dictionary,
+                                   data_page_size=2048)
+    ours = read_parquet(path)
+    theirs = pd.read_parquet(path)
+    assert list(ours) == list(theirs.columns)
+    for k in theirs.columns:
+        t = theirs[k].to_numpy()
+        if t.dtype == object or ours[k].dtype == object:
+            assert list(ours[k]) == list(t), k
+        else:
+            assert ours[k].dtype == t.dtype and np.array_equal(ours[k], t, equal_nan=t.dtype.kind == "f"), k
+    assert_frames_equal(ours, frame)
+
+
 def test_refuses_compressed_files(tmp_path):
-    path = tmp_path / "snappy.parquet"
-    pd.DataFrame({"a": np.arange(10)}).to_parquet(path, compression="snappy", use_dictionary=False)
-    with pytest.raises(ValueError, match="compressed"):
+    path = tmp_path / "gzip.parquet"
+    pd.DataFrame({"a": np.arange(10)}).to_parquet(path, compression="gzip", use_dictionary=False)
+    with pytest.raises(ValueError, match="compression codec"):
         read_parquet(path)

@@ -1,0 +1,166 @@
+"""The port's ``SearchPlan`` against the JAX package's, on the CPU (the
+cases of ``tests/unit/test_search_plan.py``, ``run_step`` recorded so that
+no search runs):
+
+- the plain plan runs one step in the output directory with no extras, in
+  both packages; the CLI layer decides whether a later step is enabled;
+- the transfer and MBR steps (alone, together, or enabled by the config or
+  the CLI layer) raise ``NotPortedError`` naming their ROADMAP items before
+  any step runs;
+- ``_get_optimized_values_config`` gives JAX's result on the same
+  ``stat.tsv`` (medians, a NaN column, no file); ``_merge`` equals JAX's;
+- ``SearchStep.run`` ends with ``SearchPlanOutput.build`` over every raw
+  path's quant folder, after a ``fail_fast`` error is raised.
+"""
+
+import numpy as np
+import pandas as pd
+import pytest
+
+import alphadia_torch.search_step as port_step
+from alphadia_torch.exceptions import NotPortedError
+from alphadia_torch.search_plan import SearchPlan, _merge
+from alphadia_torch.search_step import SearchStep
+from alphadia_tpu.search_plan import SearchPlan as JaxSearchPlan
+from alphadia_tpu.search_plan import _merge as jax_merge
+
+pytest_plugins = ("torch_port_plugin",)
+
+
+@pytest.fixture()
+def recorded(monkeypatch):
+    calls = {"port": [], "jax": []}
+    monkeypatch.setattr(SearchPlan, "run_step", lambda self, d, e: calls["port"].append((str(d), e)))
+    monkeypatch.setattr(JaxSearchPlan, "run_step", lambda self, d, e: calls["jax"].append((str(d), e)))
+    return calls
+
+
+PLAIN = {
+    "no_config": ({}, {}),
+    "cli_disables_transfer": ({"general": {"transfer_step_enabled": True}}, {"general": {"transfer_step_enabled": False}}),
+    "cli_disables_mbr": ({"general": {"mbr_step_enabled": True}}, {"general": {"mbr_step_enabled": False}}),
+}
+
+
+@pytest.mark.parametrize("case", PLAIN)
+def test_plain_plan_runs_one_step_as_jax(tmp_path, recorded, case):
+    config, cli = PLAIN[case]
+    JaxSearchPlan(str(tmp_path), config=config, cli_config=cli).run_plan()
+    SearchPlan(str(tmp_path), config=config, cli_config=cli).run_plan()
+    assert recorded["port"] == recorded["jax"] == [(str(tmp_path), {})]
+
+
+LATER = {
+    "transfer": ({"general": {"transfer_step_enabled": True}}, {}, "items 5 and 6"),
+    "mbr": ({"general": {"mbr_step_enabled": True}}, {}, "items 4 and 5"),
+    "both": ({"general": {"transfer_step_enabled": True, "mbr_step_enabled": True}}, {}, "items 5 and 6"),
+    "cli_enables_mbr": ({}, {"general": {"mbr_step_enabled": True}}, "items 4 and 5"),
+}
+
+
+@pytest.mark.parametrize("case", LATER)
+def test_later_steps_raise_before_any_step(tmp_path, recorded, case):
+    config, cli, items = LATER[case]
+    with pytest.raises(NotPortedError, match=f"ROADMAP queue 1 {items}"):
+        SearchPlan(str(tmp_path), config=config, cli_config=cli).run_plan()
+    assert recorded["port"] == []
+
+
+STATS = {
+    "medians": {"optimization.ms1_error": [4.0, 6.0, 5.0], "optimization.ms2_error": [8.0, 12.0, 10.0]},
+    "even_count": {"optimization.ms1_error": [4.0, 6.5], "optimization.ms2_error": [8.25, 12.0]},
+    "nan_column": {"optimization.ms1_error": [float("nan")], "optimization.ms2_error": [7.0]},
+    "partial_nan": {"optimization.ms1_error": [float("nan"), 3.0], "optimization.ms2_error": [7.0, float("nan")]},
+    "other_columns": {"run": ["a", "b"], "precursors": [10, 20]},
+    "no_file": None,
+}
+
+
+@pytest.mark.parametrize("case", STATS)
+def test_optimized_values_match_jax(tmp_path, case):
+    if STATS[case] is not None:
+        pd.DataFrame(STATS[case]).to_csv(tmp_path / "stat.tsv", sep="\t", index=False)
+    want = JaxSearchPlan._get_optimized_values_config(tmp_path)
+    assert SearchPlan._get_optimized_values_config(tmp_path) == want
+    if case == "medians":
+        assert want == {"search": {"target_ms1_tolerance": 5.0, "target_ms2_tolerance": 10.0}}
+
+
+def test_merge_matches_jax():
+    layers = (
+        {"a": {"b": 1, "c": [1, 2]}, "d": 1},
+        {"a": {"b": 2, "e": {"f": 3}}, "d": {"x": 1}},
+        {"a": {"e": {"g": 4}}, "h": None},
+    )
+    assert _merge(*layers) == jax_merge(*layers)
+
+
+def test_search_step_ends_with_the_cross_run_outputs(tmp_path, monkeypatch):
+    monkeypatch.setattr(SearchStep, "load_library", lambda self: "library")
+    processed, built = [], []
+    monkeypatch.setattr(SearchStep, "_process_raw_file", lambda self, path, name, q: processed.append(name))
+
+    class Output:
+        def __init__(self, config, folder):
+            self.folder = folder
+
+        def build(self, folders, library):
+            built.append(([str(f) for f in folders], library, str(self.folder)))
+
+    monkeypatch.setattr(port_step, "SearchPlanOutput", Output)
+    SearchStep(str(tmp_path), config={"raw_paths": ["x/a.mzML", "y/b.mzML"]}, device="cpu").run()
+    assert processed == ["a", "b"]
+    assert built == [([str(tmp_path / "quant" / "a"), str(tmp_path / "quant" / "b")], "library", str(tmp_path))]
+
+    # fail_fast: the error comes before the aggregation
+    def boom(self, path, name, q):
+        raise RuntimeError("disk on fire")
+
+    built.clear()
+    monkeypatch.setattr(SearchStep, "_process_raw_file", boom)
+    with pytest.raises(RuntimeError, match="disk on fire"):
+        SearchStep(str(tmp_path / "ff"), config={"raw_paths": ["a.mzML"], "general": {"fail_fast": True}},
+                   device="cpu").run()
+    assert built == []
+    # without fail_fast the failed run is collected and the rest aggregated
+    step = SearchStep(str(tmp_path / "nf"), config={"raw_paths": ["a.mzML"]}, device="cpu")
+    step.run()
+    assert [e[0] for e in step.errors] == ["a"] and len(built) == 1
+
+
+def test_mbr_library_is_built_and_its_write_refused(tmp_path, caplog):
+    """The MBR library of a precursor table: kept elution groups, RT from
+    the PSMs, protein groups; ``save_hdf`` refuses (HDF, ROADMAP queue 1
+    item 4) and the output logs JAX's warning."""
+    import logging
+
+    from alphadia_torch.config import load_default_config
+    from alphadia_torch.library.speclib import SpecLibFlat
+    from alphadia_torch.outputs.mbr import MbrLibraryBuilder
+    from alphadia_torch.outputs.search_plan_output import SearchPlanOutput
+
+    prec = {
+        "precursor_idx": np.arange(4, dtype=np.uint32), "elution_group_idx": np.array([0, 0, 1, 2], np.uint32),
+        "decoy": np.array([0, 1, 0, 0], np.uint8), "rt_library": np.float32([10, 10, 20, 30]),
+        "mod_seq_charge_hash": np.array([5, 6, 7, 8], np.uint64), "proteins": np.array(["A", "A", "B", "C"], object),
+        "flat_frag_start_idx": np.array([0, 2, 4, 6], np.uint32), "flat_frag_stop_idx": np.array([2, 4, 6, 8], np.uint32),
+    }
+    frag = {"mz_library": np.arange(8, dtype=np.float32)}
+    psm = {
+        "precursor_idx": np.array([0, 2, 0], np.uint32), "elution_group_idx": np.array([0, 1, 0], np.uint32),
+        "decoy": np.zeros(3, np.uint8), "qval": np.array([0.0, 0.5, 0.001]), "rt_observed": np.float32([11, 21, 13]),
+        "mod_seq_charge_hash": np.array([5, 7, 5], np.uint64), "pg": np.array(["A;X", "B", "A;X"], object),
+    }
+    lib = MbrLibraryBuilder(fdr=0.01, keep_decoys=False)(psm, SpecLibFlat(prec, frag))
+    assert lib.precursor_df["precursor_idx"].tolist() == [0]
+    assert lib.precursor_df["rt_library"].tolist() == [12.0]
+    assert lib.precursor_df["proteins"].tolist() == ["A;X"]
+    assert lib.fragment_df["mz_library"].tolist() == [0.0, 1.0]
+    kept = MbrLibraryBuilder(fdr=0.01, keep_decoys=True)(psm, SpecLibFlat(prec, frag))
+    assert kept.precursor_df["precursor_idx"].tolist() == [0, 1]
+
+    out = SearchPlanOutput(load_default_config(), tmp_path)
+    with caplog.at_level(logging.WARNING):
+        out._build_mbr_library(psm, SpecLibFlat(prec, frag))
+    warnings = [r.message for r in caplog.records if "could not build MBR library" in r.message]
+    assert len(warnings) == 1 and "ROADMAP queue 1 item 4" in warnings[0]

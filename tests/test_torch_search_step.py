@@ -36,7 +36,7 @@ import yaml
 import alphadia_torch.search_step as port_module
 import alphadia_tpu.search_step as jax_module
 from alphadia_torch.convert import frame_from_pandas
-from alphadia_torch.exceptions import BusinessError, NoLibraryAvailableError, NotPortedError
+from alphadia_torch.exceptions import BusinessError, NoLibraryAvailableError, NoPsmFoundError, NotPortedError
 from alphadia_torch.library.speclib import SpecLibFlat
 from alphadia_torch.search_step import SearchStep
 from alphadia_torch.utils.parquet import read_parquet, write_parquet
@@ -56,8 +56,18 @@ def step(tmp_path, **kw):
 
 @pytest.fixture()
 def light_step(monkeypatch):
-    """No library build: run() goes straight to the per-file loop."""
+    """No library build and no cross-run build (as the JAX unit tests'
+    fixture): run() is the per-file loop."""
     monkeypatch.setattr(SearchStep, "load_library", lambda self: None)
+
+    class NoOutput:
+        def __init__(self, *a):
+            pass
+
+        def build(self, *a):
+            pass
+
+    monkeypatch.setattr(port_module, "SearchPlanOutput", NoOutput)
 
 
 # ---------------------------------------------------------------------------
@@ -131,10 +141,12 @@ def test_shared_quant_directory(tmp_path, light_step, monkeypatch):
 
 def test_a_raw_file_that_fails_is_collected(tmp_path, monkeypatch):
     """A raw file in a format still to come fails on its own; the error
-    names its reader's slice."""
+    names its reader's slice. With no run left, the cross-run outputs find
+    no PSMs (``NoPsmFoundError``, as in the JAX package)."""
     monkeypatch.setattr(SearchStep, "load_library", lambda self: SpecLibFlat({}, {}))
     s = step(tmp_path, config={"raw_paths": [str(tmp_path / "run.d")]})
-    s.run()
+    with pytest.raises(NoPsmFoundError):
+        s.run()
     assert len(s.errors) == 1 and "zstd" in s.errors[0][1]
 
 

@@ -169,6 +169,7 @@ def main():
         help="calibration.batch_size (default: the config's); scale it with the world to keep the share of the "
         "library that the optimization steps search",
     )
+    ap.add_argument("--random-state", type=int, nargs="+", default=[0])
     opt = ap.parse_args()
     world = dict(
         n_peptides=opt.peptides, n_windows=opt.windows, n_cycles=600, noise_peaks_per_spectrum=80, seed=5,
@@ -178,18 +179,19 @@ def main():
     if opt.batch_size is not None:
         config["calibration"] = {"batch_size": opt.batch_size}
     planted = SyntheticConfig().lib_ppm_bias
-    with tempfile.TemporaryDirectory() as tmp:
-        runs, prec = run_both(Path(tmp), world, config, random_state=0)
-        for who, (wf, psm, _) in runs.items():
-            om = wf.optimization_manager
-            print(
-                f"{who}: steps {steps_per_optimizer(wf)}, tolerances "
-                + ", ".join(f"{k} {getattr(om, k):.4f}" for k in TOLERANCES)
-                + f"; identified/false/targets/decoys {id_shares(wf.dia_data.cycle_rt, prec, psm)}; fragment m/z "
-                f"bias error {bias_error(wf, wf.spectral_library.fragment_df, planted):.4f} ppm; "
-                f"{wf.wall:.1f} s",
-                flush=True,
-            )
+    for state in opt.random_state:
+        with tempfile.TemporaryDirectory() as tmp:
+            runs, prec = run_both(Path(tmp), world, config, random_state=state)
+            for who, (wf, psm, _) in runs.items():
+                om = wf.optimization_manager
+                print(
+                    f"random state {state}, {who}: steps {steps_per_optimizer(wf)}, tolerances "
+                    + ", ".join(f"{k} {getattr(om, k):.4f}" for k in TOLERANCES)
+                    + f"; identified/false/targets/decoys {id_shares(wf.dia_data.cycle_rt, prec, psm)}; fragment m/z "
+                    f"bias error {bias_error(wf, wf.spectral_library.fragment_df, planted):.4f} ppm; "
+                    f"{wf.wall:.1f} s",
+                    flush=True,
+                )
 
 
 if __name__ == "__main__":

@@ -182,3 +182,87 @@ def run_search_step(out_dir, raw_path, lib_path, config: dict, device):
     if step.errors:
         raise RuntimeError(f"the search step failed: {step.errors}")
     return step, seen[0], read_parquet(seen[0].path / "psm.parquet")
+
+
+# the two runs of ``tests/e2e/test_cli_e2e.py``: same peptides, other
+# acquisition noise, intensity level and RT shift
+E2E_WORLD = dict(n_peptides=300, n_windows=6, n_cycles=350, seed=21)
+E2E_RUNS = ((101, 1.0, 0.0), (202, 1.6, 4.0))
+E2E_OVERRIDES = {
+    "general": {"random_state": 1, "save_figures": False},
+    "calibration": {"batch_size": 150, "optimization_lock_target": 80, "min_steps": 2, "max_steps": 5},
+    "search": {"target_ms1_tolerance": 10, "target_ms2_tolerance": 12, "target_rt_tolerance": 30},
+    "tpu": {"selection_batch": 256, "scoring_batch": 256},
+}
+
+
+# phase [9] of ``chip_smoke.py``: two runs of the search step's quarter 3D
+# world (that of ``tests/test_torch_search_step.py``'s script mode), the
+# runs differing as the e2e runs do
+CLI_WORLD = dict(n_peptides=1500, n_windows=3, n_cycles=600, noise_peaks_per_spectrum=80, seed=5)
+
+
+def write_cli_inputs(tmp, world: dict, runs=E2E_RUNS) -> tuple[list, object, dict, list]:
+    """Runs of one seeded world from sequences as mzML (``run_<i>.mzML``,
+    each run with its acquisition seed, intensity factor and RT shift) and
+    a TSV transition list of the targets with digest-like protein groups
+    (``assign_proteins``): (raw paths, library path, targets, each run's
+    cycle RTs)."""
+    from alphadia_torch.rawdata import DiaData
+    from alphadia_torch.testing.mzml_writer import write_mzml
+    from alphadia_torch.testing.synthetic import SyntheticConfig, make_synthetic_dia
+    from alphadia_torch.testing.tsv_library import assign_proteins, write_transition_list
+
+    raw_paths, cycle_rts, prec, frag = [], [], None, None
+    for i, (acq, factor, shift) in enumerate(runs):
+        spectra, p, f = make_synthetic_dia(
+            SyntheticConfig(**world, acq_seed=acq, run_intensity_factor=factor, run_rt_shift=shift, from_sequence=True)
+        )
+        if prec is None:
+            prec, frag = p, f
+        path = tmp / f"run_{i}.mzML"
+        write_mzml(path, spectra)
+        raw_paths.append(path)
+        cycle_rts.append(DiaData.from_spectra(spectra).cycle_rt)
+    prec = dict(prec)
+    prec["proteins"], prec["genes"] = assign_proteins(len(prec["sequence"]), world["seed"])
+    lib_path = tmp / "library.tsv"
+    write_transition_list(lib_path, prec, frag)
+    return raw_paths, lib_path, prec, cycle_rts
+
+
+def cli_readings(out, truth: dict, cycle_rts: list) -> dict:
+    """What phase [9] gates, read from a CLI run's output folder ``out``
+    (either package's files; no JAX needed): per run the identified and
+    false shares at 1% FDR (``search_id_shares`` of the run's
+    ``psm.parquet``); the protein groups left at 1% protein FDR; the groups
+    each LFQ level quantifies; the median and MAD of the run-to-run log2
+    ratio of ``pg.matrix``; per run the ``optimization.*`` tolerances of
+    ``stat.tsv``."""
+    from pathlib import Path
+
+    import numpy as np
+
+    from alphadia_torch.utils.parquet import read_parquet
+    from alphadia_torch.utils.tsv import read_tsv
+
+    out = Path(out)
+    r = {}
+    for i, cycle_rt in enumerate(cycle_rts):
+        psm = read_parquet(out / "quant" / f"run_{i}" / "psm.parquet")
+        r[f"identified_run_{i}"], r[f"false_run_{i}"], _, _ = search_id_shares(cycle_rt, truth, psm)
+    prec = read_parquet(out / "precursors.parquet")
+    r["protein_groups"] = len(set(prec["pg.name"][prec["precursor.decoy"] == 0].tolist()))
+    for level in ("precursor", "peptide", "pg"):
+        r[f"groups_{level}"] = len(read_parquet(out / f"{level}.matrix.parquet")["group"])
+    pg = read_parquet(out / "pg.matrix.parquet")
+    with np.errstate(divide="ignore", invalid="ignore"):
+        ratio = np.log2(pg["run_1"] / pg["run_0"])
+    ratio = ratio[np.isfinite(ratio)]
+    r["log2_ratio_median"] = float(np.median(ratio))
+    r["log2_ratio_mad"] = float(np.median(np.abs(ratio - np.median(ratio))))
+    stat = read_tsv(out / "stat.tsv")
+    for i in range(len(cycle_rts)):
+        for k in ("ms1_error", "ms2_error", "rt_error"):
+            r[f"{k}_run_{i}"] = float(stat[f"optimization.{k}"][i])
+    return r
