@@ -1,9 +1,11 @@
 """Carry state across from the JAX package.
 
-What carries across: the raw file's state, the configs, and the FDR
+What carries across: the raw file's state, the configs, the FDR
 classifier's weights (flax variables as numpy arrays, the format of the
-packaged ``constants/classifier/*.pkl``). These functions read attributes
-of the objects they are given and import nothing of the JAX package.
+packaged ``constants/classifier/*.pkl``) and the property models' weights
+(the flax trees of ``constants/weights/peptdeep_default/models.pkl`` and of
+a directory a transfer step saved). These functions read attributes of the
+objects they are given and import nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -92,3 +94,45 @@ def classifier_to_jax(state_dict: dict) -> dict:
         params[f"Dense_{k}"] = {"kernel": np.ascontiguousarray(a(f"dense.{k}.weight").T), "bias": a(f"dense.{k}.bias")}
         k += 1
     return {"params": params, "batch_stats": {"BatchNorm_0": {"mean": a("norm.mean"), "var": a("norm.var")}}}
+
+
+# flax module path of a property model's parameter -> (the port's module,
+# the layout change): Dense kernels are [in, out] against Linear's [out, in],
+# Conv kernels [width, in, out] against Conv1d's [out, in, width]
+_PROPERTY_LAYERS = {
+    ("SequenceEncoder_0", "Embed_0"): ("encoder.embed", None),
+    ("SequenceEncoder_0", "Dense_0"): ("encoder.mod", (1, 0)),
+    ("SequenceEncoder_0", "Conv_0"): ("encoder.conv0", (2, 1, 0)),
+    ("SequenceEncoder_0", "Conv_1"): ("encoder.conv1", (2, 1, 0)),
+    ("Dense_0",): ("hidden", (1, 0)),
+    ("Dense_1",): ("out", (1, 0)),
+}
+_PROPERTY_PARAMS = {"embedding": "weight", "kernel": "weight", "bias": "bias"}
+
+
+def property_models_from_jax(variables: dict) -> dict:
+    """The state dicts of the port's property models (``models/
+    property_models.MODEL_OF``) from the flax variables of each, a dict like
+    ``{"rt": {"params": {...}}, "ms2": ...}`` of numpy arrays. A layer or a
+    parameter the mapping does not know raises."""
+    out = {}
+    for model, tree in variables.items():
+        state = {}
+
+        def visit(node, path):
+            for key, value in node.items():
+                if isinstance(value, dict):
+                    visit(value, path + (key,))
+                    continue
+                layer = _PROPERTY_LAYERS.get(path)
+                if layer is None or key not in _PROPERTY_PARAMS:
+                    raise KeyError(f"{model}: no place in the port for the flax parameter {'/'.join(path + (key,))}")
+                name, axes = layer
+                a = np.asarray(value, dtype=np.float32)
+                if axes is not None and key == "kernel":
+                    a = a.transpose(axes)
+                state[f"{name}.{_PROPERTY_PARAMS[key]}"] = torch.from_numpy(np.ascontiguousarray(a))
+
+        visit(tree["params"], ())
+        out[model] = state
+    return out

@@ -139,7 +139,13 @@ class DiaData:
 
     def _build_peak_store(self, spectra: SpectrumData) -> None:
         """Sort peaks by (slot, coarse m/z bin, cycle, m/z), duplicate
-        bin-edge peaks as ghosts, and build ``cell_start``."""
+        bin-edge peaks as ghosts, and build ``cell_start``.
+
+        The order is that of the JAX package's default (native) builder:
+        bins in float64, and within a cell the spectrum's own m/z order,
+        ghosts among the canonical peaks. A query's slab is cut at ``slab``
+        peaks and its per-cycle sums depend on the order, so another order
+        within a cell changes the selection scores where slabs overflow."""
         n_slots, n_cycles = self.n_slots, self.n_cycles
         if len(spectra.mz):
             self.mz_min = float(spectra.mz.min())
@@ -159,9 +165,10 @@ class DiaData:
                 ((mz - self.bin_mz_min) / bin_w).astype(np.int64), 0, n_bins - 1
             )
 
-        bin_of_peak = bin_of(spectra.mz)
-        up = bin_of(spectra.mz + self.ghost_width)
-        dn = bin_of(spectra.mz - self.ghost_width)
+        mz64 = spectra.mz.astype(np.float64)
+        bin_of_peak = bin_of(mz64)
+        up = bin_of(mz64 + self.ghost_width)
+        dn = bin_of(mz64 - self.ghost_width)
         ghosts_up = np.nonzero(up != bin_of_peak)[0]
         ghosts_dn = np.nonzero(dn != bin_of_peak)[0]
 
@@ -188,7 +195,8 @@ class DiaData:
             all_scanbin = np.zeros(len(all_mz), np.int32)
 
         key = (all_slot * n_bins + all_bin) * n_cycles + all_cycle
-        order = np.argsort(key, kind="stable")  # keeps m/z ascending within a cell
+        # within a cell by source peak: m/z ascending, ghosts in their place
+        order = np.lexsort((with_ghosts(np.arange(len(spectra.mz))), key))
 
         n_cells = n_slots * n_bins * n_cycles
         cell_off = np.zeros(n_cells + 1, dtype=np.int64)

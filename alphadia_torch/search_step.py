@@ -4,8 +4,11 @@
 
 - the config: the packaged defaults < ``config`` < ``cli_config`` <
   ``extra_config`` (multistep extras), frozen to ``frozen_config.yaml``;
-- the library: a TSV/CSV transition list through the harmonize steps,
-  decoys and flattening (``load_library``);
+- the library: a TSV/CSV transition list, or with
+  ``library_prediction.enabled`` and no library a FASTA digest
+  (``fasta_paths``), through the harmonize steps and ``SimplePrediction``
+  (the property models on the step's device), decoys and flattening
+  (``load_library``);
 - each raw file (``.mzML``, ``.mzML.gz``, ``.npz``): ``PeptideCentricWorkflow``
   ``load`` -> ``search_parameter_optimization`` -> ``extraction`` on the
   card (``device=None``) or where ``device`` says, then
@@ -19,9 +22,8 @@ their FDR, ``stat.tsv``, ``internal.tsv``, the LFQ matrices), on the host;
 under ``general.fail_fast`` a failed raw file's error is raised before it.
 Settings whose code comes with a later slice raise ``NotPortedError``
 naming it, before any work: several hosts, ``general.profile_directory``,
-``transfer_library.enabled``, ``library_multiplexing.enabled``, a library
-that needs prediction, ``general.save_library`` / ``save_flat_library``
-(HDF).
+``transfer_library.enabled``, ``library_multiplexing.enabled``,
+``general.save_library`` / ``save_flat_library`` (HDF).
 """
 
 from __future__ import annotations
@@ -38,11 +40,13 @@ from alphadia_torch.constants.keys import SearchStepFiles
 from alphadia_torch.exceptions import CustomError, NoLibraryAvailableError, NotPortedError
 from alphadia_torch.library import chem
 from alphadia_torch.library.decoy import DecoyGenerator
+from alphadia_torch.library.digest import digest_fasta
 from alphadia_torch.library.flatten import FlattenLibrary, InitFlatColumns, LogFlatLibraryStats
 from alphadia_torch.library.harmonize import AnnotateFasta, IsotopeGenerator, PrecursorInitializer, RTNormalization
 from alphadia_torch.library.loader import DynamicLoader
 from alphadia_torch.library.pipeline import ProcessingPipeline
 from alphadia_torch.library.speclib import SpecLibFlat
+from alphadia_torch.models.prediction import SimplePrediction
 from alphadia_torch.outputs.search_plan_output import SearchPlanOutput
 from alphadia_torch.reporting import PROGRESS, init_logging
 from alphadia_torch.utils.device import resolve_device
@@ -110,7 +114,10 @@ class SearchStep:
             )
 
     def load_library(self) -> SpecLibFlat:
-        """The flat library: a transition list, harmonized, with decoys,
+        """The flat library: a transition list, or a FASTA digest when
+        ``library_prediction.enabled`` and no library is given; harmonized,
+        predicted where asked or where the library lacks RT or fragment
+        intensities (the property models on the step's device), with decoys,
         flattened."""
         lib_path = self.config["library_path"]
         fasta_paths = list(self.config["fasta_paths"] or [])
@@ -125,23 +132,42 @@ class SearchStep:
                 "library_multiplexing.enabled: the multiplexed library and its requant come with the requant slice "
                 "of the port (ROADMAP queue 1 item 5)"
             )
-        if not lib_path:
-            if fasta_paths and predict:
-                raise NotPortedError(
-                    "a library digested from FASTA and predicted comes with the prediction slice of the port "
-                    "(ROADMAP queue 1 item 6)"
-                )
+        if lib_path:
+            lib = DynamicLoader()(lib_path)
+        elif fasta_paths and predict:
+            lp = self.config["library_prediction"]
+            lib = digest_fasta(
+                fasta_paths,
+                enzyme=lp["enzyme"],
+                missed_cleavages=lp["missed_cleavages"],
+                fixed_modifications=lp["fixed_modifications"],
+                variable_modifications=lp["variable_modifications"],
+                max_var_mod_num=lp["max_var_mod_num"],
+                precursor_len=tuple(lp["precursor_len"]),
+                precursor_charge=tuple(lp["precursor_charge"]),
+                precursor_mz=tuple(lp["precursor_mz"]),
+            )
+        else:
             raise NoLibraryAvailableError()
 
-        lib = DynamicLoader()(lib_path)
-        if predict or lib.fragment_intensity is None or "rt" not in lib.precursor_df:
-            raise NotPortedError(
-                "this library needs predicted retention times or fragment intensities: prediction comes with the "
-                "prediction slice of the port (ROADMAP queue 1 item 6)"
-            )
         steps = [PrecursorInitializer(self.config["library_loading"]["drop_decoys"])]
-        if fasta_paths:
+        if fasta_paths and lib_path:
             steps.append(AnnotateFasta(fasta_paths))
+        if predict or lib.fragment_intensity is None or "rt" not in lib.precursor_df:
+            lp = self.config["library_prediction"]
+            steps.append(
+                SimplePrediction(
+                    fragment_types=tuple(lp["fragment_types"]),
+                    max_fragment_charge=lp["max_fragment_charge"],
+                    model_path=lp["peptdeep_model_path"],
+                    predict_charge=lp["predict_charge"],
+                    min_charge_probability=lp["min_charge_probability"],
+                    nce=lp["nce"],
+                    instrument=lp["instrument"],
+                    model_type=lp["peptdeep_model_type"],
+                    device=self.device,
+                )
+            )
         lib = ProcessingPipeline(steps + [IsotopeGenerator(), RTNormalization()])(lib)
 
         lib = DecoyGenerator("diann")(lib)

@@ -262,6 +262,127 @@ def make_synthetic_dia(
     return spectra, precursor, fragment
 
 
+def make_run_from_library(precursor: dict, fragment: dict, cfg: SyntheticConfig | None = None) -> SpectrumData:
+    """A synthetic acquisition holding the TARGETS of a flat library: their
+    fragments at the library's m/z, eluting at ``rt_norm`` x the gradient.
+    Drives the library-free path end to end: digest -> prediction -> this
+    generator -> mzML -> search. The JAX package's function, its random
+    calls in the same order, on column dicts."""
+    cfg = cfg or SyntheticConfig()
+    rng = np.random.default_rng(cfg.seed)
+    acq_rng = np.random.default_rng(cfg.acq_seed if cfg.acq_seed >= 0 else cfg.seed + 1)
+
+    is_target = precursor["decoy"] == 0 if "decoy" in precursor else np.ones(len(precursor["charge"]), bool)
+    targets = {k: v[is_target] for k, v in precursor.items()}
+    n_t = int(is_target.sum())
+    n_slots = cfg.n_windows + 1
+    win_edges = np.linspace(*cfg.precursor_mz_range, cfg.n_windows + 1)
+    iso_lower = np.concatenate([[-1.0], win_edges[:-1]])
+    iso_upper = np.concatenate([[-1.0], win_edges[1:]])
+    gradient = cfg.n_cycles * cfg.cycle_time
+    n_spectra = cfg.n_cycles * n_slots
+    spec_rt = (
+        np.repeat(np.arange(cfg.n_cycles) * cfg.cycle_time, n_slots)
+        + np.tile(np.arange(n_slots) * (cfg.cycle_time / n_slots), cfg.n_cycles)
+    ).astype(np.float32)
+
+    rt_col = "rt_library" if "rt_library" in targets else "rt_norm"
+    rt_norm = targets[rt_col].astype(np.float64)
+    if rt_norm.max() > 1.5:  # already absolute
+        rt_center = rt_norm
+    else:
+        rt_center = 0.05 * gradient + rt_norm * 0.9 * gradient
+    mz_col = "mz_library" if "mz_library" in targets else "precursor_mz"
+    pmz = targets[mz_col].astype(np.float64)
+    charge = targets["charge"].astype(np.int64)
+    amplitude = cfg.base_intensity * 10 ** rng.normal(0.0, 0.4, n_t)
+    detectable = rng.random(n_t) < cfg.detectable_fraction
+    window_of = np.clip(np.searchsorted(win_edges, pmz, side="right") - 1, 0, cfg.n_windows - 1)
+    sigma = cfg.fwhm_rt / 2.3548
+    half = int(np.ceil(3 * sigma / cfg.cycle_time))
+    iso_spacing = 1.0033548378
+
+    spec_mz: list[list] = [[] for _ in range(n_spectra)]
+    spec_int: list[list] = [[] for _ in range(n_spectra)]
+    spec_mob: list[list] = [[] for _ in range(n_spectra)]
+    # planted mobility: the library's where it has one, else drawn
+    if "mobility_library" in targets and np.abs(targets["mobility_library"]).max() > 0:
+        mob_center = targets["mobility_library"].astype(np.float64)
+    else:
+        mob_center = rng.uniform(*cfg.mobility_range, n_t)
+    mob_sigma = cfg.mobility_fwhm / 2.3548
+    fmz_col = "mz_library" if "mz_library" in fragment else "mz"
+    frag_mz_all = fragment[fmz_col].astype(np.float64)
+    frag_int_all = fragment["intensity"].astype(np.float64)
+
+    for i in range(n_t):
+        if not detectable[i]:
+            continue
+        if not (cfg.precursor_mz_range[0] < pmz[i] < cfg.precursor_mz_range[1]):
+            continue
+        a, b = int(targets["flat_frag_start_idx"][i]), int(targets["flat_frag_stop_idx"][i])
+        fmz, fint = frag_mz_all[a:b], frag_int_all[a:b]
+        if len(fmz) == 0:
+            continue
+        c_center = rt_center[i] / cfg.cycle_time
+        c0 = max(0, int(c_center) - half)
+        c1 = min(cfg.n_cycles - 1, int(c_center) + half)
+        slot = 1 + window_of[i]
+        for c in range(c0, c1 + 1):
+            s = c * n_slots + slot
+            prof = np.exp(-0.5 * ((spec_rt[s] - rt_center[i]) / sigma) ** 2)
+            inten = amplitude[i] * fint * prof
+            keep = inten > 1.0
+            if keep.any():
+                spec_mz[s].append(fmz[keep] * (1.0 + acq_rng.normal(0, cfg.peak_ppm_sigma * 1e-6, keep.sum())))
+                spec_int[s].append(inten[keep].astype(np.float32))
+                if cfg.with_mobility:
+                    spec_mob[s].append((mob_center[i] + acq_rng.normal(0, mob_sigma, int(keep.sum()))).astype(np.float32))
+            s1 = c * n_slots
+            prof1 = np.exp(-0.5 * ((spec_rt[s1] - rt_center[i]) / sigma) ** 2)
+            iso_int = amplitude[i] * np.array([1.0, 0.6, 0.3]) * prof1 * 2
+            keep1 = iso_int > 1.0
+            if keep1.any():
+                iso_mz = pmz[i] + iso_spacing * np.arange(3)[keep1] / charge[i]
+                spec_mz[s1].append(iso_mz * (1.0 + acq_rng.normal(0, cfg.peak_ppm_sigma * 1e-6, keep1.sum())))
+                spec_int[s1].append(iso_int[keep1].astype(np.float32))
+                if cfg.with_mobility:
+                    spec_mob[s1].append((mob_center[i] + acq_rng.normal(0, mob_sigma, int(keep1.sum()))).astype(np.float32))
+
+    lo, hi = cfg.fragment_mz_range
+    for s in range(n_spectra):
+        k = cfg.noise_peaks_per_spectrum
+        spec_mz[s].append(acq_rng.uniform(lo, hi, k))
+        spec_int[s].append((cfg.base_intensity * 0.05 * 10 ** acq_rng.normal(0, 0.4, k)).astype(np.float32))
+        if cfg.with_mobility:
+            spec_mob[s].append(acq_rng.uniform(*cfg.mobility_range, k).astype(np.float32))
+
+    counts = np.zeros(n_spectra, dtype=np.int64)
+    all_mz, all_int, all_mob = [], [], []
+    for s in range(n_spectra):
+        mzs = np.concatenate(spec_mz[s])
+        ints = np.concatenate(spec_int[s]).astype(np.float32)
+        order = np.argsort(mzs, kind="stable")
+        all_mz.append(mzs[order].astype(np.float32))
+        all_int.append(ints[order])
+        if cfg.with_mobility:
+            all_mob.append(np.concatenate(spec_mob[s])[order])
+        counts[s] = len(mzs)
+    start = np.zeros(n_spectra, dtype=np.int64)
+    np.cumsum(counts[:-1], out=start[1:])
+    return SpectrumData(
+        rt=spec_rt,
+        ms_level=np.tile(np.concatenate([[1], np.full(cfg.n_windows, 2)]).astype(np.uint8), cfg.n_cycles),
+        isolation_lower_mz=np.tile(iso_lower, cfg.n_cycles).astype(np.float32),
+        isolation_upper_mz=np.tile(iso_upper, cfg.n_cycles).astype(np.float32),
+        peak_start_idx=start,
+        peak_stop_idx=start + counts,
+        mz=np.concatenate(all_mz),
+        intensity=np.concatenate(all_int),
+        mobility=np.concatenate(all_mob) if cfg.with_mobility else None,
+    )
+
+
 def add_synthetic_decoys(
     precursor: dict, fragment: dict, seed: int = 99, multiplier: int = 1
 ) -> tuple[dict, dict]:

@@ -70,7 +70,22 @@ Phases, in order; any failure exits non-zero:
    IDs per run, the protein groups, the LFQ groups and the run-to-run
    ratio gated against the JAX package's CLI on the same inputs, the
    tolerances against the card's own search step on the first run;
-10. the ``{"kernels": [...]}`` line, then the card's name and power limit,
+10. library-free search: (a) ``alphadia-torch -f run.mzML --fasta
+   db.fasta`` with ``library_prediction.enabled`` on the card, the inputs
+   made on the host (a seeded FASTA of 20 proteins, the run planted with
+   the library its digest and the packaged models predict) and checked by
+   sha256 against those of the JAX readings: the digest, each property
+   model's predict (device ms from CUDA events), the rest of the library
+   build, the search step and the outputs timed; the predicted library on
+   the card against the CPU's; the kernel's launches, each pass's first
+   launch of every step held against the plain version; the IDs at 1% FDR
+   and the protein groups gated against the JAX package's CLI on the same
+   files; (b) prediction at proteome scale: a seeded FASTA of 20,400
+   proteins digested, the four models on every precursor on the card
+   (walls, device ms, precursors/s, peak memory, the card against the CPU
+   on the first 20,000), ``SimplePrediction.forward`` on the whole digest
+   or the largest leading share its host stages fit into the phase's aim;
+11. the ``{"kernels": [...]}`` line, then the card's name and power limit,
    then the ``{"ok": true, ...}`` line last.
 """
 
@@ -1816,6 +1831,378 @@ def phase9(root, name, card, launches, secs, tmp):
 
 
 # ---------------------------------------------------------------------------
+# 10. library-free search
+# ---------------------------------------------------------------------------
+# phase [10a], the CLI library-free on one run: the inputs are made on the
+# host by the port's CPU path (tests/torch_workflow_worlds.
+# write_library_free_inputs: a seeded FASTA of 20 proteins with the human
+# proteome's residue composition and lengths, whose digest at the default
+# library_prediction settings gives 3,172 target precursors; the packaged
+# models' library in float64 planted in 3 windows, 600 cycles, 80 noise
+# peaks, 0.9 detectable, seed 5; the mzML uncompressed), so every machine
+# writes the same bytes: the sha256 below are the files the JAX readings
+# searched. The JAX package's CLI on the CPU read, at random states 0, 1
+# and 2 (`PYTHONPATH=.:tests python tests/test_torch_prediction.py
+# --random-state 0 1 2`), the readings below. Gates, as phase [8]: identified
+# at least the least less 0.005, false at most 0.02 or the largest + 0.005;
+# the protein groups within 2% of JAX's band; the predicted library on the
+# card against the same library predicted on the CPU at atol 1e-4
+LF_FASTA_SHA256 = "78c49b673ca6ee594498a03ac9ffd239006d0710e93b7b124894db17271fe2d7"
+LF_MZML_SHA256 = "563eb69742d948cee1d5107c12cf6f140f543be94bfe3c0bde9a3bde570805bd"
+LF_JAX_READINGS = {  # random states 0, 1, 2
+    "identified": [0.8404628330995793, 0.8380084151472651, 0.8355539971949509],
+    "false": [0.22464898595943839, 0.23989113530326595, 0.23699648025029332],
+    "protein_groups": [20, 20, 20],
+}
+LF_REL_BAND = 0.02
+LF_PREDICTION_ATOL = 1e-4
+# phase [10b]: the human reference proteome's count of canonical proteins
+# (UniProt UP000005640), the card against the CPU on the first precursors,
+# and the phase's aim in seconds, by which SimplePrediction.forward is cut
+PROTEOME_PREDICTION_CHECK = 20000
+PROTEOME_BUDGET_S = 300.0
+PROTEOME_FORWARD_PROBE = 100000
+
+
+class ModelTimes:
+    """The property models' work while it is active: the host wall and rows
+    of each ``FinetuneManager.predict_*`` call, and CUDA events around each
+    batch's forward on the card (their sum is the model's device ms; the
+    gaps between a batch's kernels count, the host's encoding and copies
+    between batches do not)."""
+
+    METHODS = (("predict_rt", "rt"), ("predict_ms2", "ms2"), ("predict_mobility", "ccs"), ("predict_charge", "charge"))
+
+    def __enter__(self):
+        import torch
+
+        from alphadia_torch.models import finetune
+        from alphadia_torch.models.property_models import MODEL_OF
+
+        self.wall, self.rows, self.events, self._patched = {}, {}, {}, []
+        for method, model in self.METHODS:
+            orig = getattr(finetune.FinetuneManager, method)
+
+            def timed(mgr, *a, _orig=orig, _model=model, **k):
+                t = time.perf_counter()
+                out = _orig(mgr, *a, **k)
+                self.wall[_model] = self.wall.get(_model, 0.0) + time.perf_counter() - t
+                self.rows[_model] = self.rows.get(_model, 0) + len(out)
+                return out
+
+            self._patched.append((finetune.FinetuneManager, method, orig))
+            setattr(finetune.FinetuneManager, method, timed)
+        for model, cls in MODEL_OF.items():
+            orig = cls.forward
+
+            def forward(module, *a, _orig=orig, _model=model, **k):
+                if not next(module.parameters()).is_cuda:
+                    return _orig(module, *a, **k)
+                s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                s.record()
+                out = _orig(module, *a, **k)
+                e.record()
+                self.events.setdefault(_model, []).append((s, e))
+                return out
+
+            self._patched.append((cls, "forward", orig))
+            cls.forward = forward
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, orig in reversed(self._patched):
+            setattr(owner, attr, orig)
+
+    def device_ms(self, model) -> float:
+        import torch
+
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in self.events.get(model, []))
+
+
+def predicted_columns_against_cpu(label, card_lib, cpu_lib):
+    """The predicted columns of one library on the card against the CPU:
+    (largest abs error of rt_norm, mobility, fragment intensities)."""
+    err = (
+        float(np.abs(card_lib.precursor_df["rt_norm"] - cpu_lib.precursor_df["rt_norm"]).max()),
+        float(np.abs(card_lib.precursor_df["mobility"] - cpu_lib.precursor_df["mobility"]).max()),
+        float(np.abs(card_lib.fragment_intensity - cpu_lib.fragment_intensity).max()),
+    )
+    ok = max(err) <= LF_PREDICTION_ATOL and np.array_equal(card_lib.fragment_mz, cpu_lib.fragment_mz)
+    log(
+        f"{label} predicted library, card against CPU: rt_norm {err[0]:.3g}, mobility {err[1]:.3g}, fragment "
+        f"intensities {err[2]:.3g} (max abs; atol {LF_PREDICTION_ATOL}), fragment m/z equal: "
+        f"{np.array_equal(card_lib.fragment_mz, cpu_lib.fragment_mz)} {'ok' if ok else 'FAILED'}"
+    )
+    if not ok:
+        raise AssertionError(f"{label}: the predicted library on the card departs from the CPU's")
+
+
+def phase10a(root, name, card, launches, secs, tmp):
+    """``alphadia-torch -f run.mzML --fasta db.fasta`` with
+    ``library_prediction.enabled`` on the card: the walls (digest, each
+    model's predict, the rest of the library build, the search step, the
+    outputs), the predicted library against the CPU's, the kernel's
+    launches (each pass's first launch of every step held against the plain
+    version) and the gates above."""
+    import hashlib
+
+    import torch
+
+    import alphadia_torch.cli as cli
+    import alphadia_torch.search_step as search_step
+    from alphadia_torch.models.prediction import SimplePrediction
+    from alphadia_torch.ops import xic_cuda
+    from alphadia_torch.outputs.search_plan_output import SearchPlanOutput
+    from alphadia_torch.workflow.peptidecentric.optimization_handler import OptimizationHandler
+
+    sys.path.insert(0, str(root / "tests"))
+    from torch_workflow_worlds import LIBRARY_FREE_WORLD, library_free_readings, write_library_free_inputs
+
+    t0 = time.perf_counter()
+    d = tmp / "library_free"
+    d.mkdir()
+    fasta, raw, truth, cycle_rt = write_library_free_inputs(d, LIBRARY_FREE_WORLD)
+    sha = {p.name: hashlib.sha256(p.read_bytes()).hexdigest() for p in (fasta, raw)}
+    log(
+        f"[10a] inputs: {LIBRARY_FREE_WORLD['n_proteins']} proteins, {len(truth['charge'])} target precursors, "
+        f"{int(truth['_truth_detectable'].sum())} planted; {fasta.name} sha256 {sha[fasta.name]}, {raw.name} "
+        f"{raw.stat().st_size / 2**20:.1f} MiB sha256 {sha[raw.name]}; made on the host in {time.perf_counter() - t0:.2f} s"
+    )
+    if (sha[fasta.name], sha[raw.name]) != (LF_FASTA_SHA256, LF_MZML_SHA256):
+        raise AssertionError("library-free inputs: not the files of the JAX readings")
+
+    captured = {"walls": []}
+    workflow_cls = search_step.PeptideCentricWorkflow
+    process_batch = OptimizationHandler._process_batch
+    process_raw = search_step.SearchStep._process_raw_file
+    load_library = search_step.SearchStep.load_library
+    digest = search_step.digest_fasta
+    forward = SimplePrediction.forward
+    build = SearchPlanOutput.build
+
+    class Captured(workflow_cls):
+        def load(self, *a, **k):
+            rec.stage = "load"
+            return super().load(*a, **k)
+
+        def extraction(self):
+            rec.stage = "extraction"
+            return super().extraction()
+
+    def staged(handler):
+        rec.stage = f"step{len(handler.step_log)}"
+        return process_batch(handler)
+
+    def timed_raw(self, *a, **k):
+        t = time.perf_counter()
+        try:
+            return process_raw(self, *a, **k)
+        finally:
+            torch.cuda.synchronize()
+            captured["walls"].append(time.perf_counter() - t)
+
+    def timed_library(self):
+        t = time.perf_counter()
+        out = load_library(self)
+        captured["library_s"] = time.perf_counter() - t
+        return out
+
+    def timed_digest(*a, **k):
+        t = time.perf_counter()
+        out = digest(*a, **k)
+        captured["digest_s"] = time.perf_counter() - t
+        return out
+
+    def kept_forward(self, lib):
+        captured["before_prediction"] = lib.copy()
+        out = forward(self, lib)
+        captured["predicted"] = out.copy()
+        return out
+
+    def timed_build(self, *a, **k):
+        t = time.perf_counter()
+        try:
+            return build(self, *a, **k)
+        finally:
+            captured["outputs_s"] = time.perf_counter() - t
+
+    out = tmp / "library_free_out"
+    argv = ["-o", str(out), "-f", str(raw), "--fasta", str(fasta), "--config-dict",
+            json.dumps({"general": {"random_state": 0, "log_level": "PROGRESS"}, "library_prediction": {"enabled": True}})]
+    search_step.PeptideCentricWorkflow = Captured
+    OptimizationHandler._process_batch = staged
+    search_step.SearchStep._process_raw_file = timed_raw
+    search_step.SearchStep.load_library = timed_library
+    search_step.digest_fasta = timed_digest
+    SimplePrediction.forward = kept_forward
+    SearchPlanOutput.build = timed_build
+    code = 0
+    try:
+        with Recorder() as rec, ModelTimes() as mt:
+            torch.cuda.synchronize()
+            xic_cuda.launches = 0
+            t0 = time.perf_counter()
+            try:
+                cli.run(argv)
+            except SystemExit as e:
+                code = e.code
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            n_launch = xic_cuda.launches
+    finally:
+        search_step.PeptideCentricWorkflow = workflow_cls
+        OptimizationHandler._process_batch = process_batch
+        search_step.SearchStep._process_raw_file = process_raw
+        search_step.SearchStep.load_library = load_library
+        search_step.digest_fasta = digest
+        SimplePrediction.forward = forward
+        SearchPlanOutput.build = build
+    log(f"[10a] alphadia-torch {' '.join(a if len(a) < 60 else '...' for a in argv)}: exit {code}, wall {wall:.4f} s")
+    if code != 0:
+        raise AssertionError(f"the library-free CLI exited {code}")
+    if n_launch != len(rec.calls) or n_launch == 0:
+        raise AssertionError(f"library-free: {n_launch} kernel launches counted, {len(rec.calls)} wrapper calls recorded")
+    predict_s = sum(mt.wall.values())
+    log(
+        f"[10a] walls: digest {captured['digest_s']:.4f} s; "
+        + "; ".join(
+            f"{m} predict {mt.wall[m]:.4f} s ({mt.rows[m]} precursors, device {mt.device_ms(m):.4f} ms)"
+            for _, m in ModelTimes.METHODS if m in mt.wall
+        )
+        + f"; the rest of the library build {captured['library_s'] - captured['digest_s'] - predict_s:.4f} s (library "
+        f"build {captured['library_s']:.4f} s); search step {captured['walls'][0]:.4f} s; outputs "
+        f"{captured['outputs_s']:.4f} s ({name}, {card})"
+    )
+    if set(mt.wall) != {"rt", "ms2", "ccs"}:
+        raise AssertionError(f"library-free: the models that ran: {sorted(mt.wall)}")
+
+    cpu_lib = SimplePrediction(device="cpu")(captured["before_prediction"])
+    predicted_columns_against_cpu("[10a]", captured["predicted"], cpu_lib)
+
+    calls = rec.calls
+    launches["library_free"] = len(calls)
+    worst = first_launches_against_plain("[10a]", "run", calls)
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=DEVICE)
+    per_pass = summed_device_ms(calls, flush)
+    del flush
+    for (stage, pass_name), acc in sorted(per_pass.items()):
+        log(
+            f"[10a] kernel, {stage} {pass_name}: {acc['launches']} launches, {acc['ms']:.4f} ms warm "
+            f"({acc['bound_ms'] / acc['ms']:.2f} of bound), L2 flushed {acc['flushed_ms']:.4f} ms, bound "
+            f"{acc['bound_ms']:.4f} ms ({acc['bytes'] / 1e6:.2f} MB) ({name}, {card})"
+        )
+    log(
+        f"[10a] kernel: {len(calls)} launches, summed {sum(x['ms'] for x in per_pass.values()):.4f} ms warm, bound "
+        f"{sum(x['bound_ms'] for x in per_pass.values()):.4f} ms ({name}, {card})"
+    )
+    secs["library_free"] = wall
+
+    got = library_free_readings(out, truth, cycle_rt)
+    log(f"[10a] readings: {json.dumps(got)}")
+    jax = LF_JAX_READINGS
+    checks = [
+        ("identified", got["identified"], (min(jax["identified"]) - 0.005, 1.0)),
+        ("false", got["false"], (0.0, max(0.02, max(jax["false"]) + 0.005))),
+        ("protein_groups", got["protein_groups"], band(jax["protein_groups"], rel=LF_REL_BAND)),
+    ]
+    failed = []
+    for k, v, (lo, hi) in checks:
+        ok = lo <= v <= hi
+        log(f"[10a] gate {k}: {v:.4f} in [{lo:.4f}, {hi:.4f}] {'ok' if ok else 'FAILED'} ({name}, {card})")
+        if not ok:
+            failed.append(k)
+    if failed:
+        raise AssertionError(f"library-free: gates failed: {failed}")
+    return worst
+
+
+def phase10b(name, card, tmp):
+    """Prediction at proteome scale: a seeded FASTA of the human proteome's
+    20,400 proteins digested at the default settings, the four models on
+    every precursor on the card (walls, device ms, precursors/s, peak
+    memory), the card against the CPU on the first precursors, and
+    ``SimplePrediction.forward`` over the whole digest or, where its host
+    stages would pass the phase's aim, the largest leading share that fits."""
+    import torch
+
+    from alphadia_torch.library.digest import digest_fasta
+    from alphadia_torch.library.speclib import SpecLibBase
+    from alphadia_torch.models.finetune import FinetuneManager
+    from alphadia_torch.models.prediction import PACKAGED_MODELS, SimplePrediction
+    from alphadia_torch.testing.fasta import HUMAN_PROTEOME_PROTEINS, write_fasta
+    from alphadia_torch.utils.frame import take
+
+    t_phase = time.perf_counter()
+    fasta = write_fasta(tmp / "proteome.fasta", HUMAN_PROTEOME_PROTEINS, seed=0)
+    t0 = time.perf_counter()
+    df = digest_fasta([str(fasta)]).precursor_df
+    digest_s = time.perf_counter() - t0
+    n = len(df["charge"])
+    log(
+        f"[10b] proteome: {HUMAN_PROTEOME_PROTEINS} proteins ({fasta.stat().st_size / 2**20:.1f} MiB FASTA), digest at "
+        f"the default settings: {n} precursors in {digest_s:.4f} s ({n / digest_s:.1f} precursors/s, host)"
+    )
+    seqs, mods, sites, charge = list(df["sequence"]), list(df["mods"]), list(df["mod_sites"]), df["charge"].astype(np.int32)
+    manager = FinetuneManager.load(PACKAGED_MODELS)  # the card
+    on_cpu = FinetuneManager.load(PACKAGED_MODELS, device="cpu")
+    m = PROTEOME_PREDICTION_CHECK
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with ModelTimes() as mt:
+        for method, model in ModelTimes.METHODS:
+            args = (seqs, mods, sites, charge) if model in ("ms2", "ccs") else (seqs, mods, sites)
+            t0 = time.perf_counter()
+            got = getattr(manager, method)(*args)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            dev_ms = mt.device_ms(model)
+            ref = getattr(on_cpu, method)(*(a[:m] for a in args))
+            err = float(np.abs(got[:m] - ref).max())
+            log(
+                f"[10b] {model}: {n} precursors, wall {wall:.4f} s ({n / wall:.1f} precursors/s), "
+                f"device {dev_ms:.4f} ms ({n / max(dev_ms, 1e-9) * 1e3:.1f} precursors/s on the card; "
+                f"{len(mt.events.get(model, []))} batches of {FinetuneManager.PREDICT_BATCH}); the card against the CPU on the "
+                f"first {m}: max abs {err:.3g} {'ok' if err <= LF_PREDICTION_ATOL else 'FAILED'} ({name}, {card})"
+            )
+            if err > LF_PREDICTION_ATOL or got.shape[0] != n or not np.isfinite(got).all():
+                raise AssertionError(f"proteome: the {model} model on the card departs from the CPU")
+            del got
+    log(f"[10b] max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB over the four models ({name}, {card})")
+
+    # SimplePrediction.forward (models, fragment m/z, the MS2 scatter): a
+    # leading share first, then the whole digest if its rate fits the aim
+    share = min(n, PROTEOME_FORWARD_PROBE)
+    t0 = time.perf_counter()
+    lib = SimplePrediction()(SpecLibBase(take(df, slice(0, share))))
+    probe_s = time.perf_counter() - t0
+    left = PROTEOME_BUDGET_S - (time.perf_counter() - t_phase)
+    whole_s = probe_s * n / share
+    if share < n and whole_s <= left:
+        share = n
+    elif share < n:
+        share = max(share, int(share * left / probe_s) // PROTEOME_FORWARD_PROBE * PROTEOME_FORWARD_PROBE)
+        log(
+            f"[10b] cut: SimplePrediction.forward runs on the leading {share} of {n} precursors: at the probe's "
+            f"{share and PROTEOME_FORWARD_PROBE / probe_s:.1f} precursors/s its host stages (encoding three times, "
+            f"fragment m/z a precursor at a time in Python, the scatter) would take ~{whole_s:.0f} s over the whole "
+            f"digest, {left:.0f} s of the phase's {PROTEOME_BUDGET_S:.0f} s are left"
+        )
+    if share > PROTEOME_FORWARD_PROBE:
+        del lib
+        t0 = time.perf_counter()
+        lib = SimplePrediction()(SpecLibBase(take(df, slice(0, share))))
+        probe_s = time.perf_counter() - t0
+    log(
+        f"[10b] SimplePrediction.forward on {share} precursors: {probe_s:.4f} s ({share / probe_s:.1f} precursors/s), "
+        f"{lib.fragment_mz.shape[0]} fragment rows x {lib.fragment_mz.shape[1]} columns; phase {time.perf_counter() - t_phase:.1f} s "
+        f"({name}, {card})"
+    )
+    if not (np.isfinite(lib.fragment_intensity).all() and lib.fragment_intensity.max() > 0):
+        raise AssertionError("proteome: SimplePrediction.forward gave no finite intensities")
+
+
+# ---------------------------------------------------------------------------
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true", help="also trace one pass of each path")
@@ -1992,9 +2379,15 @@ def main(argv=None) -> int:
         # ---- 9. the CLI across two runs ---------------------------------------
         w = phase9(root, name, card, launches, secs, tmp)
         max_abs_err = max(max_abs_err, w[0])
-    log(f"[9] kernel launches per run: {json.dumps(launches)} ({name}, {card})")
+        log(f"[9] kernel launches per run: {json.dumps(launches)} ({name}, {card})")
 
-    # ---- 10. summary lines --------------------------------------------------
+        # ---- 10. library-free search ------------------------------------------
+        w = phase10a(root, name, card, launches, secs, tmp)
+        max_abs_err = max(max_abs_err, w[0])
+        log(f"[10a] kernel launches per run: {json.dumps(launches)} ({name}, {card})")
+        phase10b(name, card, tmp)
+
+    # ---- 11. summary lines --------------------------------------------------
     kernels = {
         "kernels": [
             {

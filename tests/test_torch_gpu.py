@@ -501,3 +501,30 @@ def test_cli_on_card_matches_the_cpu(card, tmp_path, monkeypatch):
         a, b = ids["cuda"][run_name], ids["cpu"][run_name]
         assert len(b) > 150
         assert len(a & b) / len(a | b) >= 0.95, run_name
+
+
+@pytest.mark.parametrize("name", ["rt", "ms2", "ccs", "charge"])
+def test_property_models_on_card_match_the_cpu(name):
+    """Each property model with the packaged weights on the card against
+    the same model on the CPU (TF32 off), atol 1e-4, on a digest of a seeded
+    FASTA; needs the card only, not nvcc."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import tempfile
+    from pathlib import Path
+
+    from alphadia_torch.library.digest import digest_fasta
+    from alphadia_torch.models.finetune import FinetuneManager
+    from alphadia_torch.models.prediction import PACKAGED_MODELS
+    from alphadia_torch.testing.fasta import write_fasta
+
+    with tempfile.TemporaryDirectory() as tmp:
+        df = digest_fasta([str(write_fasta(Path(tmp) / "db.fasta", 60, seed=4))]).precursor_df
+    args = [list(df["sequence"]), list(df["mods"]), list(df["mod_sites"])]
+    if name in ("ms2", "ccs"):
+        args.append(df["charge"].astype(np.int32))
+    method = {"rt": "predict_rt", "ms2": "predict_ms2", "ccs": "predict_mobility", "charge": "predict_charge"}[name]
+    got = getattr(FinetuneManager.load(PACKAGED_MODELS, device="cuda"), method)(*args)
+    want = getattr(FinetuneManager.load(PACKAGED_MODELS, device="cpu"), method)(*args)
+    assert len(want) > FinetuneManager.PREDICT_BATCH  # a full batch and a padded tail
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)

@@ -99,6 +99,10 @@ import alphadia_torch.outputs.search_plan_output
 import alphadia_torch.fdr.fdrx
 import alphadia_torch.search_plan
 import alphadia_torch.cli
+import alphadia_torch.models.property_models
+import alphadia_torch.models.finetune
+import alphadia_torch.models.prediction
+import alphadia_torch.testing.fasta
 cfg = alphadia_torch.config.load_default_config()
 assert cfg["tpu"]["gather_slab"] == 256
 loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
@@ -149,6 +153,31 @@ def test_search_step_runs_without_the_blocked_packages(tmp_path):
     assert proc.stdout.strip().endswith("ok")
 
 
+_BLOCKED_PREDICTION = _BLOCKED_IMPORT.split("import alphadia_torch\n")[0] + """
+from pathlib import Path
+from alphadia_torch.testing.fasta import write_fasta
+from alphadia_torch.search_step import SearchStep
+fasta = write_fasta(Path(%r) / "db.fasta", 3, seed=2)
+step = SearchStep(%r, config={"fasta_paths": [str(fasta)], "library_prediction": {"enabled": True}}, device="cpu")
+flat = step.load_library()
+assert flat.n_precursors > 100 and float(flat.fragment_df["intensity"].max()) > 0
+loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+assert not loaded, loaded
+print("ok")
+"""
+
+
+def test_library_free_build_runs_without_the_blocked_packages(tmp_path):
+    """A FASTA digested and predicted with the packaged weights (read by the
+    numpy-only unpickler), flattened with decoys: no blocked package."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_PREDICTION % (str(REPO), str(tmp_path), str(tmp_path / "out"))],
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().endswith("ok")
+
+
 def test_port_sources_name_no_jax():
     paths = [p for p in (REPO / "alphadia_torch").rglob("*") if p.suffix in (".py", ".cu")]
     for path in paths + [REPO / "chip_smoke.py"]:
@@ -172,9 +201,11 @@ def test_default_device_raises_without_cuda():
 
 def test_fdr_and_driver_entry_points_default_to_the_card(tmp_path):
     """The pipelined and RT-windowed drivers, the classifier, the FDR
-    manager, the workflow and its extraction handler take ``device=None`` as
-    the card and raise without one."""
+    manager, the workflow and its extraction handler, the property models'
+    manager take ``device=None`` as the card and raise without one."""
     from alphadia_torch.models.classifier import BinaryClassifier
+    from alphadia_torch.models.finetune import FinetuneManager
+    from alphadia_torch.models.prediction import PACKAGED_MODELS
     from alphadia_torch.rawdata import DiaData
     from alphadia_torch.search.pipelined import PipelinedExtraction
     from alphadia_torch.search.streaming import RtWindowedSearch
@@ -195,6 +226,7 @@ def test_fdr_and_driver_entry_points_default_to_the_card(tmp_path):
         lambda: PipelinedExtraction(DiaData.__new__(DiaData), {}, {}),
         lambda: RtWindowedSearch(None, {}, {}),
         lambda: SearchStep(str(tmp_path / "step")),
+        lambda: FinetuneManager.load(PACKAGED_MODELS),
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()

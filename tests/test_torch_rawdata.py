@@ -69,7 +69,7 @@ def test_decoys_are_identical(seed):
 @pytest.fixture(scope="module", params=[False, True], ids=["3d", "4d"])
 def stores(request):
     (sp, _, _), _ = _worlds(3, with_mobility=request.param)
-    return DiaData.from_spectra(sp), JaxDiaData.from_spectra(sp, use_native=False)
+    return DiaData.from_spectra(sp), JaxDiaData.from_spectra(sp)
 
 
 _DIA_ARRAYS = (
@@ -176,7 +176,7 @@ def test_npz_raw_file_round_trip(tmp_path):
             np.testing.assert_array_equal(getattr(back, f), getattr(theirs, f), err_msg=f)
     manager = RawFileManager({"general": {"thread_count": 1}, "tpu": {"coarse_bin_width": 1.0, "n_scan_bins": 8}})
     dia = manager.get_dia_data_object(str(tmp_path / "port.npz"))
-    jd = JaxDiaData.from_spectra(theirs, n_scan_bins=8, use_native=False)
+    jd = JaxDiaData.from_spectra(theirs, n_scan_bins=8)
     assert (dia.rt_min, dia.rt_max) == (jd.rt_min, jd.rt_max)
     np.testing.assert_array_equal(dia.cell_start, jd.cell_start)
     np.testing.assert_array_equal(dia.peak_mz, jd.peak_mz)

@@ -157,8 +157,6 @@ LATER = {
     "profile_directory": ({"general": {"profile_directory": "/tmp/prof"}}, "profiling slice"),
     "transfer_library": ({"transfer_library": {"enabled": True}}, "requant slice"),
     "library_multiplexing": ({"library_multiplexing": {"enabled": True}}, "requant slice"),
-    "prediction": ({"library_prediction": {"enabled": True}}, "prediction slice"),
-    "digest_and_predict": ({"library_path": None, "fasta_paths": ["x.fasta"], "library_prediction": {"enabled": True}}, "prediction slice"),
     "save_library": ({"general": {"save_library": True}}, "HDF slice"),
     "save_flat_library": ({"general": {"save_flat_library": True}}, "HDF slice"),
     "hdf_library": ({"library_path": "HDF"}, "HDF slice"),

@@ -19,6 +19,10 @@ the planted library bias, which phase [7] gates against:
     PYTHONPATH=. python tests/test_torch_workflow.py --peptides 1500 --windows 3
     PYTHONPATH=. python tests/test_torch_workflow.py --peptides 6250 --windows 3 --mobility --batch-size 2000
 
+``--random-state 0 1 2`` reads several states, ``--parting`` also prints,
+per FDR call, where the two runs part (the candidates, the features, the
+best candidate of each precursor).
+
 (``--batch-size 2000``: the 4D steps then search the share of the library
 that they search on the 4D world of ``chip_smoke.py``, 8,000 of 25,000
 elution groups.)
@@ -156,6 +160,63 @@ def bias_error(wf, fragments: dict, planted_ppm: float) -> float:
     return abs(float(np.median((est.function.predict(mz) - mz) / mz * 1e6)) - planted_ppm)
 
 
+def record_fdr_steps(monkeypatch_like) -> dict:
+    """Record each package's ``FDRManager.fit_predict`` inputs and outputs
+    per call (one a step, then the final extraction): {"jax": [(features,
+    output), ...], "port": [...]}, each frame a column dict."""
+    import alphadia_torch.workflow.managers.fdr_manager as port_fdr
+    import alphadia_tpu.workflow.managers.fdr_manager as jax_fdr
+
+    rec = {"jax": [], "port": []}
+    for who, module in (("jax", jax_fdr), ("port", port_fdr)):
+        orig = module.FDRManager.fit_predict
+
+        def fit_predict(self, features, *a, _orig=orig, _who=who, **k):
+            out = _orig(self, features, *a, **k)
+            as_dict = frame_from_pandas if _who == "jax" else dict
+            rec[_who].append((as_dict(features), as_dict(out)))
+            return out
+
+        monkeypatch_like.setattr(module.FDRManager, "fit_predict", fit_predict)
+    return rec
+
+
+def print_first_parting(rec: dict) -> None:
+    """Per FDR call while both packages have one: the candidates only one
+    side scored, the feature columns that differ (relative to max(|x|, 1)
+    above 1e-4) on the candidates both scored, and the precursors whose best
+    candidate (the fit's output) differs, with their probabilities."""
+    for step, ((fj, oj), (fp, op)) in enumerate(zip(rec["jax"], rec["port"])):
+        kj = list(zip(fj["precursor_idx"].tolist(), fj["rank"].tolist()))
+        ip = {k: i for i, k in enumerate(zip(fp["precursor_idx"].tolist(), fp["rank"].tolist()))}
+        both_ = [i for i, k in enumerate(kj) if k in ip]
+        a, b = np.array(both_, np.int64), np.array([ip[kj[i]] for i in both_], np.int64)
+        differ = {}
+        for c in fj:
+            if c in fp and fj[c].dtype.kind in "fiu":
+                x, y = fj[c][a].astype(np.float64), fp[c][b].astype(np.float64)
+                n = int((np.abs(x - y) / np.maximum(np.abs(x), 1) > 1e-4).sum())
+                if n:
+                    differ[c] = n
+        best_j = dict(zip(oj["precursor_idx"].tolist(), oj["rank"].tolist()))
+        best_p = dict(zip(op["precursor_idx"].tolist(), op["rank"].tolist()))
+        moved = [p for p in best_j if p in best_p and best_j[p] != best_p[p]]
+        print(
+            f"FDR call {step}: candidates {len(kj)} / {len(ip)}, scored by one side only {len(kj) + len(ip) - 2 * len(a)}; "
+            f"features differing (rows): {dict(sorted(differ.items(), key=lambda t: -t[1])[:6])}; best candidate "
+            f"differs for {len(moved)} precursors",
+            flush=True,
+        )
+        for p in moved[:3]:
+            i, k = list(oj["precursor_idx"]).index(p), list(op["precursor_idx"]).index(p)
+            print(
+                f"  precursor {p}: JAX rank {best_j[p]} (rt_observed {oj['rt_observed'][i]:.1f} s, proba "
+                f"{oj['proba'][i]:.7f}), port rank {best_p[p]} (rt_observed {op['rt_observed'][k]:.1f} s, proba "
+                f"{op['proba'][k]:.7f})",
+                flush=True,
+            )
+
+
 def main():
     import tempfile
     from pathlib import Path
@@ -170,6 +231,7 @@ def main():
         "library that the optimization steps search",
     )
     ap.add_argument("--random-state", type=int, nargs="+", default=[0])
+    ap.add_argument("--parting", action="store_true", help="also print, per FDR call, where the two runs part")
     opt = ap.parse_args()
     world = dict(
         n_peptides=opt.peptides, n_windows=opt.windows, n_cycles=600, noise_peaks_per_spectrum=80, seed=5,
@@ -180,7 +242,8 @@ def main():
         config["calibration"] = {"batch_size": opt.batch_size}
     planted = SyntheticConfig().lib_ppm_bias
     for state in opt.random_state:
-        with tempfile.TemporaryDirectory() as tmp:
+        with tempfile.TemporaryDirectory() as tmp, pytest.MonkeyPatch.context() as mp:
+            rec = record_fdr_steps(mp) if opt.parting else None
             runs, prec = run_both(Path(tmp), world, config, random_state=state)
             for who, (wf, psm, _) in runs.items():
                 om = wf.optimization_manager
@@ -192,6 +255,8 @@ def main():
                     f"{wf.wall:.1f} s",
                     flush=True,
                 )
+            if rec is not None:
+                print_first_parting(rec)
 
 
 if __name__ == "__main__":

@@ -266,3 +266,134 @@ def cli_readings(out, truth: dict, cycle_rts: list) -> dict:
         for k in ("ms1_error", "ms2_error", "rt_error"):
             r[f"{k}_run_{i}"] = float(stat[f"optimization.{k}"][i])
     return r
+
+
+# phase [10a] of ``chip_smoke.py``: the library-free search on one run. A
+# seeded FASTA of 20 proteins (``testing/fasta.py``: the human proteome's
+# residue composition and length distribution), whose digest at the default
+# ``library_prediction`` settings gives 3,172 target precursors; the run
+# plants the library that digest and the packaged models predict, in 3
+# windows over the digest's m/z range
+LIBRARY_FREE_WORLD = dict(
+    n_proteins=20, fasta_seed=0, n_windows=3, n_cycles=600, noise_peaks_per_spectrum=80, seed=5,
+    detectable_fraction=0.9, precursor_mz_range=(400.0, 1200.0),
+)
+
+
+def predicted_library(fasta_paths, prediction=None, **digest_kw):
+    """Digest -> ``prediction`` (``SimplePrediction`` with the packaged
+    models on the CPU unless given) -> isotopes -> flatten, as the
+    library-free e2e test builds the library it plants: the flat library."""
+    from alphadia_torch.library.digest import digest_fasta
+    from alphadia_torch.library.flatten import FlattenLibrary, InitFlatColumns
+    from alphadia_torch.library.harmonize import IsotopeGenerator, PrecursorInitializer
+    from alphadia_torch.models.prediction import SimplePrediction
+
+    lib = digest_fasta([str(p) for p in fasta_paths], **digest_kw)
+    prediction = prediction or SimplePrediction(device="cpu")
+    lib = IsotopeGenerator()(prediction(PrecursorInitializer()(lib)))
+    return InitFlatColumns()(FlattenLibrary()(lib))
+
+
+def library_run_truth(precursor: dict, cfg) -> dict:
+    """The targets ``make_run_from_library`` plants, by (sequence, mods,
+    charge): ``_truth_detectable`` (drawn detectable, inside the run's m/z
+    range, with fragments) and ``_truth_rt``, its elution centre. Replays
+    the generator's two draws before the acquisition."""
+    import numpy as np
+
+    t = {k: v[precursor["decoy"] == 0] for k, v in precursor.items()}
+    n = len(t["charge"])
+    rng = np.random.default_rng(cfg.seed)
+    rng.normal(0.0, 0.4, n)  # the amplitudes
+    detectable = rng.random(n) < cfg.detectable_fraction
+    rt = t["rt_library" if "rt_library" in t else "rt_norm"].astype(np.float64)
+    gradient = cfg.n_cycles * cfg.cycle_time
+    rt_center = rt if rt.max() > 1.5 else 0.05 * gradient + rt * 0.9 * gradient
+    mz = t["mz_library" if "mz_library" in t else "precursor_mz"].astype(np.float64)
+    in_range = (cfg.precursor_mz_range[0] < mz) & (mz < cfg.precursor_mz_range[1])
+    has_frags = t["flat_frag_stop_idx"] > t["flat_frag_start_idx"]
+    return {
+        "sequence": t["sequence"], "mods": t["mods"], "charge": t["charge"],
+        "_truth_detectable": detectable & in_range & has_frags, "_truth_rt": rt_center,
+    }
+
+
+def _float64_prediction():
+    """``SimplePrediction`` with the packaged models in float64 on the CPU,
+    their outputs rounded to float32: every machine predicts the same
+    float32 values, where float32 products differ in their last bits between
+    CPUs and library builds."""
+    import numpy as np
+    import torch
+
+    from alphadia_torch.models.finetune import FinetuneManager
+    from alphadia_torch.models.prediction import PACKAGED_MODELS, SimplePrediction
+
+    class Float64Manager(FinetuneManager):
+        def _run(self, fn, arrays):
+            with torch.inference_mode():
+                inputs = [torch.from_numpy(a.astype(np.float64) if a.dtype.kind == "f" else a) for a in arrays]
+                return fn(*inputs).to(torch.float32).numpy()
+
+    class Float64Prediction(SimplePrediction):
+        def _load_manager(self):
+            manager = Float64Manager.load(PACKAGED_MODELS, device="cpu")
+            for model in manager.models.values():
+                model.double()
+            return manager
+
+    return Float64Prediction(device="cpu")
+
+
+def write_library_free_inputs(tmp, world: dict = LIBRARY_FREE_WORLD):
+    """The FASTA and the mzML of a library-free world: (FASTA path, mzML
+    path, truth of ``library_run_truth``, the run's cycle RTs). Made on the
+    CPU so that every machine writes the same bytes: the planted library is
+    predicted in float64 (rounded to float32), the mzML is not compressed
+    (zlib builds differ in their output)."""
+    from alphadia_torch.rawdata import DiaData
+    from alphadia_torch.testing.fasta import write_fasta
+    from alphadia_torch.testing.mzml_writer import write_mzml
+    from alphadia_torch.testing.synthetic import SyntheticConfig, make_run_from_library
+
+    fasta = write_fasta(tmp / "db.fasta", world["n_proteins"], seed=world["fasta_seed"])
+    flat = predicted_library([fasta], prediction=_float64_prediction())
+    cfg = SyntheticConfig(**{k: v for k, v in world.items() if k not in ("n_proteins", "fasta_seed")})
+    spectra = make_run_from_library(flat.precursor_df, flat.fragment_df, cfg)
+    raw = tmp / "run.mzML"
+    write_mzml(raw, spectra, compress=False)
+    return fasta, raw, library_run_truth(flat.precursor_df, cfg), DiaData.from_spectra(spectra).cycle_rt
+
+
+def library_free_readings(out, truth: dict, cycle_rt, fdr: float = 0.01) -> dict:
+    """What phase [10a] gates, from a CLI run's output folder (either
+    package's): the identified share (planted targets with a target PSM at
+    q <= fdr, by sequence, mods and charge), the false share (accepted
+    targets not planted or more than 3 cycles from their apex), targets and
+    decoys accepted, the protein groups at 1% protein FDR."""
+    from pathlib import Path
+
+    import numpy as np
+
+    from alphadia_torch.utils.parquet import read_parquet
+
+    out = Path(out)
+    psm = read_parquet(out / "quant" / "run" / "psm.parquet")
+    accepted = psm["qval"] <= fdr
+    target = psm["decoy"] == 0
+    sel = accepted & target
+    row = {(str(s), str(m), int(z)): i for i, (s, m, z) in enumerate(zip(truth["sequence"], truth["mods"], truth["charge"]))}
+    rows = np.array([row[(str(s), str(m), int(z))] for s, m, z in zip(psm["sequence"][sel], psm["mods"][sel], psm["charge"][sel])], np.int64)
+    planted = truth["_truth_detectable"]
+    det = np.nonzero(planted)[0]
+    truth_cycle = np.abs(cycle_rt[None, :] - truth["_truth_rt"][rows][:, None]).argmin(1)
+    false = ~planted[rows] | (np.abs(psm["frame_center"][sel] - truth_cycle) > 3)
+    prec = read_parquet(out / "precursors.parquet")
+    return {
+        "identified": float(np.isin(det, rows).mean()),
+        "false": float(false.mean()) if len(false) else 0.0,
+        "targets": int(len(rows)),
+        "decoys": int((accepted & ~target).sum()),
+        "protein_groups": len(set(prec["pg.name"][prec["precursor.decoy"] == 0].tolist())),
+    }
