@@ -70,22 +70,21 @@ class SpectrumData:
         )
 
 
-# formats whose readers come with a later slice of the port: each needs a
-# decoder the card machine lacks (zstd frames for Bruker TDF, HDF5 for
-# alphaRaw files)
+# formats whose readers come with a later slice of the port: HDF5, which the
+# card machine has no reader for
 _LATER_READERS = {
     ".hdf": "alphaRaw HDF (needs an HDF5 reader)",
     ".hdf5": "alphaRaw HDF (needs an HDF5 reader)",
     ".h5": "alphaRaw HDF (needs an HDF5 reader)",
-    ".d": "Bruker TDF (needs a zstd frame decoder)",
 }
-SUPPORTED = ".mzML, .mzML.gz, .npz"
+SUPPORTED = ".mzML, .mzML.gz, .d (Bruker TDF), .npz"
 
 
 def load_raw_file(path: str | Path, thread_count: int = 4) -> SpectrumData:
-    """Read a raw file by its extension: ``.mzML`` (plain or gzipped) and
-    ``.npz`` (``save_npz``). ``.hdf`` and ``.d`` raise until the slice that
-    ports their readers; other formats raise as unsupported."""
+    """Read a raw file by its extension: ``.mzML`` (plain or gzipped), a
+    Bruker ``.d`` directory and ``.npz`` (``save_npz``), each reader on
+    ``thread_count`` threads where it has any. ``.hdf`` raises until the
+    slice that ports its reader; other formats raise as unsupported."""
     path = Path(path)
     name = path.name.lower()
     suffix = path.suffix.lower()
@@ -93,12 +92,16 @@ def load_raw_file(path: str | Path, thread_count: int = 4) -> SpectrumData:
         from alphadia_torch.rawdata.mzml import read_mzml
 
         return read_mzml(path, thread_count=thread_count)
+    if suffix == ".d":
+        from alphadia_torch.rawdata.bruker_tdf import read_bruker_d
+
+        return read_bruker_d(path, thread_count=thread_count)
     if suffix == ".npz":
         return load_npz(path)
     if suffix in _LATER_READERS:
         raise ValueError(
             f"{_LATER_READERS[suffix]} files ({path.name}) are not read yet: their reader comes with a later "
-            f"slice of the port (ROADMAP queue 1, the .d and .hdf readers). Supported now: {SUPPORTED}"
+            f"slice of the port (ROADMAP queue 1, the .hdf reader). Supported now: {SUPPORTED}"
         )
     raise ValueError(
         f"Unsupported raw file format '{suffix}' ({path}). Supported: {SUPPORTED}; convert other vendor "

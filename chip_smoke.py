@@ -84,8 +84,21 @@ Phases, in order; any failure exits non-zero:
    proteins digested, the four models on every precursor on the card
    (walls, device ms, precursors/s, peak memory, the card against the CPU
    on the first 20,000), ``SimplePrediction.forward`` on the whole digest
-   or the largest leading share its host stages fit into the phase's aim;
-11. the ``{"kernels": [...]}`` line, then the card's name and power limit,
+   or the largest leading share its host stages fit into the phase's 200 s
+   aim;
+11. Bruker ``.d`` input: (a) the zstd decoder (``csrc/zstd.cpp``) built
+   with the host's C++ compiler and held to the committed fixture (the
+   JAX writer's ``.d`` read with the sha256 of the JAX reader's arrays, the
+   frame payloads at zstd levels -5, 1 and 19 with their sha256), its rate
+   on 1 and on every host thread; (b) the full 4D world from sequences
+   written by the port's TDF writer and read back equal to the input
+   quantized to tof index and scan (the reader's walls split into SQLite,
+   decode and window split); (c) ``alphadia-torch -f run_4d.d -l lib.tsv``
+   on phase [8]'s 4D quarter world on the card: the walls, the kernel's
+   launches (each pass's first launch of every step held against the plain
+   version), the IDs, the final RT tolerance, the protein groups and the
+   observed mobility gated against the JAX package's CLI on the same files;
+12. the ``{"kernels": [...]}`` line, then the card's name and power limit,
    then the ``{"ok": true, ...}`` line last.
 """
 
@@ -93,6 +106,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
@@ -2203,6 +2217,299 @@ def phase10b(name, card, tmp):
 
 
 # ---------------------------------------------------------------------------
+# phase [11], Bruker .d input. (a) The committed fixture of the port's zstd
+# decoder (tests/torch_tdf_fixture.py: a small 4D world from sequences as a
+# .d of the JAX package's writer, zstd level 3, and its frame payloads again
+# at levels -5, 1 and 19 with and without checksum and content size): the
+# port's read against the sha256 the JAX reader's arrays gave, each payload
+# against its sha256, then the decoder's rate. (b) The full 4D world from
+# sequences written as a .d by the port's writer and read back: equal to
+# the input quantized through the converters. (c) `alphadia-torch -f
+# run_4d.d -l lib.tsv` on phase [8]'s 4D quarter world (the .d of the
+# port's writer, phase [8]'s TSV library, calibration batch 2,000, random
+# state 0). The JAX package's CLI on the CPU on the same files (sha256
+# below) at random states 0 to 5 (`PYTHONPATH=.:tests python
+# tests/test_torch_bruker_tdf.py --random-state N`; JAX reads the port's
+# raw-block frames through python-zstandard) read the values below. Six
+# states, not three: at ~4,600 accepted targets the false share's binomial
+# spread is ~0.0027, and states 3-5 read up to 0.0389 where 0-2 read at
+# most 0.0360. The port's readings of the same files are draws from the
+# same spread, not a pair with JAX's at each state (the two part at the
+# third calibration step): with the final RT tolerance above 200 s, the
+# false share's mean and standard deviation are 0.0382 and 0.0046 for
+# JAX at states 1-11, 0.0385 and 0.0049 for the port on the CPU at 0-5
+# (`... --packages port`), 0.0379 and 0.0048 for the port on the card at
+# 0-11 (`tests/torch_search_step_readings.py --bruker`); single states
+# read 0.0328-0.0455 (JAX) and 0.0271-0.0463 (the port). Gates, as phase
+# [8]: identified at least the least less 0.005; false at most 0.02 or the
+# largest + 0.005; the final RT tolerance
+# at most 1.25 times the largest and below its 449.25 s start; the protein
+# groups within 2% of JAX's band; the median error of the accepted
+# targets' observed mobility against the generator's truth below 0.03
+# (tests/e2e/test_bruker_d_e2e.py)
+D_JAX_READINGS = {  # random states 0 to 5
+    "identified": [0.9831144465290806, 0.8562851782363977, 0.8544090056285178, 0.8574108818011257,
+                   0.8557223264540338, 0.8538461538461538],
+    "false": [0.02279577995478523, 0.03595408273770847, 0.03282608695652174, 0.038876889848812095,
+              0.03682842287694974, 0.034490238611713665],
+    "rt_error": [123.88912558007439, 306.4576632167969, 273.10391532830306, 250.53903555550676,
+                 274.19247067345026, 289.31461752274583],
+    "protein_groups": [50, 50, 50, 50, 50, 50],
+    "mobility_error_median": [0.024719327688217163, 0.0246046781539917, 0.024573445320129395, 0.024640440940856934,
+                              0.02463376522064209, 0.024583548307418823],
+}
+D_SHA256 = "33a5eb4bfdd272d3a6a73d16d7a9746b965b36d09c0c7f8b1a35c6dbbfd4364e"
+D_LIB_SHA256 = "ae80e2380c98c428219c9d3f38abdbbcb58e9e9bf496172df7fe5d83a6b997a5"
+D_REL_BAND = 0.02
+D_MOBILITY_ERROR_MAX = 0.03
+D_RT_START = 449.25
+DECODE_BYTES = 256 * 2**20  # decoded by each timed run of phase [11a]
+
+
+def reader_times():
+    """Host seconds of the Bruker reader's parts: SQLite, the zstd batch
+    decode, the frames' decode (the zstd batch included), the window split."""
+    from alphadia_torch.rawdata import bruker_tdf
+
+    return MethodTimes([
+        (bruker_tdf, "read_bruker_d", "reader"), (bruker_tdf, "_tables", "sqlite"),
+        (bruker_tdf, "_decode_frames", "decode"), (bruker_tdf.zstd, "decompress_frames", "zstd"),
+        (bruker_tdf, "_spectra", "split"),
+    ])
+
+
+def reader_split(s) -> str:
+    return (
+        f"SQLite {s['sqlite']:.4f} s, zstd batch {s['zstd']:.4f} s, frame blobs {s['decode'] - s['zstd']:.4f} s, "
+        f"window split {s['split']:.4f} s"
+    )
+
+
+def phase11a(root, name, card):
+    """The decoder built on the card's host and held to the fixture; its
+    rate on the fixture's frames, on 1 and on every host thread."""
+    import hashlib
+
+    from alphadia_torch.rawdata import zstd
+    from alphadia_torch.rawdata.bruker_tdf import read_bruker_d
+
+    sys.path.insert(0, str(root / "tests"))
+    from torch_tdf_fixture import DATA, array_sha256
+
+    t0 = time.perf_counter()
+    lib = zstd.build()
+    log(f"[11a] built {lib.relative_to(root)} ({' '.join(zstd.CXX_FLAGS)}) in {time.perf_counter() - t0:.2f} s")
+    rec = json.loads((DATA / "tdf_fixture.json").read_text())
+    t0 = time.perf_counter()
+    data = read_bruker_d(DATA / "tdf_world.d")
+    t_read = time.perf_counter() - t0
+    same = array_sha256(data) == rec["read_bruker_d_sha256"]
+    log(
+        f"[11a] fixture tdf_world.d: {data.n_spectra} spectra, {len(data.mz)} peaks, read in {t_read:.4f} s; the "
+        f"sha256 of every array equal to the JAX reader's: {same}"
+    )
+    if not same:
+        raise AssertionError("the fixture .d reads otherwise than the JAX package's reader read it")
+    frames = rec["frames"]
+    buf = np.fromfile(DATA / "zstd_frames.bin", np.uint8)
+    args = (buf, frames["offset"], frames["length"], frames["size"])
+    out = zstd.decompress_frames(*args, 1)
+    ends = np.cumsum(frames["size"])
+    good = [hashlib.sha256(out[e - n : e].tobytes()).hexdigest() for e, n in zip(ends, frames["size"])] == frames["sha256"]
+    n_in, n_out = int(np.sum(frames["length"])), int(ends[-1])
+    log(
+        f"[11a] zstd_frames.bin: {len(frames['size'])} frames (levels {sorted(set(frames['level']))}, largest "
+        f"{max(frames['size'])} B), {n_in} B in, {n_out} B out; every payload's sha256 equal: {good}"
+    )
+    if not good:
+        raise AssertionError("the decoder's output differs from the fixture's payloads")
+    reps = -(-DECODE_BYTES // n_out)
+    threads = os.cpu_count() or 1
+    for t in sorted({1, threads}):
+        if not np.array_equal(zstd.decompress_frames(*args, t), out):
+            raise AssertionError(f"the decoder on {t} threads gives other bytes")
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            zstd.decompress_frames(*args, t)
+        dt = time.perf_counter() - t0
+        log(
+            f"[11a] decode {reps} x the fixture's frames on {t} thread(s): {dt:.4f} s, "
+            f"{reps * n_in / dt / 1e6:.1f} MB/s in, {reps * n_out / dt / 1e6:.1f} MB/s out, "
+            f"{reps * len(frames['size']) / dt:.0f} frames/s (host of {name}, {card})"
+        )
+
+
+def phase11b(root, name, card, tmp):
+    """The full 4D world from sequences through the port's TDF writer and
+    reader: the read equals the input quantized to tof index and scan."""
+    from alphadia_torch.rawdata import bruker_tdf
+    from alphadia_torch.testing.tdf_writer import spectrum_data_to_tdf
+
+    sys.path.insert(0, str(root / "tests"))
+    from torch_workflow_worlds import same_spectra, tdf_quantized
+
+    t0 = time.perf_counter()
+    spectra, _, _ = make_spectra(N_PEPTIDES_4D, N_CYCLES, from_sequence=True, with_mobility=True)
+    log(f"[11b] 4D full world from sequences: {len(spectra.mz)} peaks, made in {time.perf_counter() - t0:.2f} s")
+    d_path = tmp / "run_4d_full.d"
+    t0 = time.perf_counter()
+    spectrum_data_to_tdf(spectra, d_path)
+    t_write = time.perf_counter() - t0
+    size = sum(p.stat().st_size for p in d_path.iterdir())
+    with reader_times() as rt:
+        back = bruker_tdf.read_bruker_d(d_path, thread_count=os.cpu_count() or 1)
+    s = rt.seconds
+    expected, worst_ppm, worst_im, outside = tdf_quantized(spectra)
+    same = same_spectra(back, expected)
+    n_frames = spectra.n_spectra  # one frame a spectrum
+    log(
+        f"[11b] written in {t_write:.4f} s: {size / 2**20:.1f} MiB ({size / len(spectra.mz):.2f} B a peak); read in "
+        f"{s['reader']:.4f} s ({reader_split(s)}): {size / s['reader'] / 2**20:.1f} MiB/s, "
+        f"{n_frames / s['reader']:.0f} frames/s, {len(back.mz) / s['reader']:.0f} peaks/s (host of {name}, {card})"
+    )
+    log(
+        f"[11b] read back {len(back.mz)} peaks of {len(spectra.mz)} (cells merged {len(spectra.mz) - len(back.mz)}); "
+        f"equal bit for bit to the input quantized through the converters: {same}; worst m/z error {worst_ppm:.4f} "
+        f"ppm, worst 1/K0 error {worst_im:.6f} of the peaks on the scan grid ({outside} off it, clipped to the edge scans)"
+    )
+    if not same:
+        raise AssertionError("the .d read back is not the input quantized to tof index and scan")
+
+
+def phase11c(root, name, card, launches, secs, tmp):
+    """``alphadia-torch -f run_4d.d -l lib.tsv`` on the card: the walls (the
+    reader split, the library build, the search step, the outputs), the
+    kernel's launches (each pass's first launch of every step held against
+    the plain version, every launch timed again alone) and the gates above."""
+    import hashlib
+
+    import torch
+
+    import alphadia_torch.cli as cli
+    import alphadia_torch.search_step as search_step
+    from alphadia_torch.ops import xic_cuda
+    from alphadia_torch.outputs.search_plan_output import SearchPlanOutput
+    from alphadia_torch.workflow.peptidecentric.optimization_handler import OptimizationHandler
+
+    sys.path.insert(0, str(root / "tests"))
+    from torch_workflow_worlds import D_BATCH, D_WORLD, d_readings, d_sha256, write_d_inputs
+
+    d = tmp / "bruker_search"
+    d.mkdir()
+    t0 = time.perf_counter()
+    d_path, lib_path, truth, cycle_rt, spectra = write_d_inputs(d)
+    sha = (d_sha256(d_path), hashlib.sha256(lib_path.read_bytes()).hexdigest())
+    log(
+        f"[11c] inputs: {D_WORLD['n_peptides']} peptides, {D_WORLD['n_windows']} windows, {len(spectra.mz)} peaks as "
+        f"{d_path.name} ({sum(p.stat().st_size for p in d_path.iterdir()) / 2**20:.1f} MiB, sha256 {sha[0]}), "
+        f"{lib_path.name} sha256 {sha[1]}; made in {time.perf_counter() - t0:.2f} s"
+    )
+    if sha != (D_SHA256, D_LIB_SHA256):
+        raise AssertionError("the .d search's inputs are not the files of the JAX readings")
+    del spectra
+
+    captured = {}
+    workflow_cls = search_step.PeptideCentricWorkflow
+    process_batch = OptimizationHandler._process_batch
+
+    class Captured(workflow_cls):
+        def load(self, *a, **k):
+            rec.stage = "load"
+            captured["wf"] = self
+            return super().load(*a, **k)
+
+        def extraction(self):
+            rec.stage = "extraction"
+            return super().extraction()
+
+    def staged(handler):
+        rec.stage = f"step{len(handler.step_log)}"
+        return process_batch(handler)
+
+    out = tmp / "bruker_search_out"
+    argv = ["-o", str(out), "-f", str(d_path), "-l", str(lib_path), "--config-dict", json.dumps({
+        "general": {"random_state": WF_RANDOM_STATE, "log_level": "PROGRESS"}, "calibration": {"batch_size": D_BATCH},
+    })]
+    timed = MethodTimes([
+        (search_step.SearchStep, "load_library", "library"), (search_step.SearchStep, "_process_raw_file", "step"),
+        (SearchPlanOutput, "build", "outputs"),
+    ])
+    search_step.PeptideCentricWorkflow = Captured
+    OptimizationHandler._process_batch = staged
+    code = 0
+    try:
+        with Recorder() as rec, timed as mt, reader_times() as rt:
+            torch.cuda.synchronize()
+            xic_cuda.launches = 0
+            t0 = time.perf_counter()
+            try:
+                cli.run(argv)
+            except SystemExit as e:
+                code = e.code
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            n_launch = xic_cuda.launches
+    finally:
+        search_step.PeptideCentricWorkflow = workflow_cls
+        OptimizationHandler._process_batch = process_batch
+    log(f"[11c] alphadia-torch {' '.join(a if len(a) < 60 else '...' for a in argv)}: exit {code}, wall {wall:.4f} s")
+    if code != 0:
+        raise AssertionError(f"the CLI from a .d exited {code}")
+    if n_launch != len(rec.calls) or n_launch == 0:
+        raise AssertionError(f".d search: {n_launch} kernel launches counted, {len(rec.calls)} wrapper calls recorded")
+    if not all(variant(kw) == "c_scan_window" for _, _, kw in rec.calls):
+        raise AssertionError(".d search: a launch without the scan window (the run is not on the 4D path)")
+    wf = captured["wf"]
+    timings = {k: v.get("duration", float("nan")) for k, v in wf.timing_manager.timings.items()}
+    m, r = mt.seconds, rt.seconds
+    log(
+        f"[11c] walls: library build {m['library']:.4f} s; search step {m['step']:.4f} s: workflow load "
+        f"{timings['load']:.4f} s (of which the .d reader {r['reader']:.4f} s: {reader_split(r)}), optimization "
+        f"{timings['optimization']:.4f} s ({len(wf.optimization_handler.step_log)} steps), extraction "
+        f"{timings['extraction']:.4f} s; outputs {m['outputs']:.4f} s ({name}, {card})"
+    )
+
+    calls = rec.calls
+    launches["bruker_search"] = n_launch
+    secs["bruker_search"] = wall
+    worst = first_launches_against_plain("[11c]", "run_4d", calls)
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=DEVICE)
+    per_pass = summed_device_ms(calls, flush)
+    del flush
+    for (stage, pass_name), acc in sorted(per_pass.items()):
+        log(
+            f"[11c] kernel, {stage} {pass_name}: {acc['launches']} launches, {acc['ms']:.4f} ms warm "
+            f"({acc['bound_ms'] / acc['ms']:.2f} of bound), L2 flushed {acc['flushed_ms']:.4f} ms, bound "
+            f"{acc['bound_ms']:.4f} ms ({acc['bytes'] / 1e6:.2f} MB) ({name}, {card})"
+        )
+    kernel_ms = sum(x["ms"] for x in per_pass.values())
+    log(
+        f"[11c] kernel: {n_launch} launches (variant c, scan window), summed {kernel_ms:.4f} ms warm, bound "
+        f"{sum(x['bound_ms'] for x in per_pass.values()):.4f} ms; {kernel_ms / (wall * 1e3):.5f} of the CLI's wall "
+        f"({name}, {card})"
+    )
+
+    got = d_readings(out, truth, cycle_rt)
+    log(f"[11c] readings: {json.dumps(got)}")
+    jax = D_JAX_READINGS
+    checks = [
+        ("identified", got["identified"], (min(jax["identified"]) - 0.005, 1.0)),
+        ("false", got["false"], (0.0, max(0.02, max(jax["false"]) + 0.005))),
+        ("rt_error", got["rt_error"], (0.0, min(1.25 * max(jax["rt_error"]), D_RT_START - 1e-6))),
+        ("protein_groups", got["protein_groups"], band(jax["protein_groups"], rel=D_REL_BAND)),
+        ("mobility_error_median", got["mobility_error_median"], (0.0, D_MOBILITY_ERROR_MAX)),
+    ]
+    failed = []
+    for k, v, (lo, hi) in checks:
+        ok = lo <= v <= hi
+        log(f"[11c] gate {k}: {v:.4f} in [{lo:.4f}, {hi:.4f}] {'ok' if ok else 'FAILED'} ({name}, {card})")
+        if not ok:
+            failed.append(k)
+    if failed:
+        raise AssertionError(f".d search: gates failed: {failed}")
+    return worst
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true", help="also trace one pass of each path")
@@ -2387,7 +2694,14 @@ def main(argv=None) -> int:
         log(f"[10a] kernel launches per run: {json.dumps(launches)} ({name}, {card})")
         phase10b(name, card, tmp)
 
-    # ---- 11. summary lines --------------------------------------------------
+        # ---- 11. Bruker .d input ----------------------------------------------
+        phase11a(root, name, card)
+        phase11b(root, name, card, tmp)
+        w = phase11c(root, name, card, launches, secs, tmp)
+        max_abs_err = max(max_abs_err, w[0])
+        log(f"[11c] kernel launches per run: {json.dumps(launches)} ({name}, {card})")
+
+    # ---- 12. summary lines --------------------------------------------------
     kernels = {
         "kernels": [
             {

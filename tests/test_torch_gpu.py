@@ -8,7 +8,7 @@ pipelined extraction against sequential selection and scoring, both
 enqueuing every batch before they wait for any, classifier fits on the
 card (one held to a fit on the CPU), the per-run workflow (load ->
 optimization -> extraction), ``SearchStep`` (mzML and TSV library in,
-``psm.parquet`` out) and the CLI on two runs (``alphadia-torch``, the
+``psm.parquet`` out; and from the committed Bruker ``.d``) and the CLI on two runs (``alphadia-torch``, the
 cross-run tables out) on the card, each held to the same run on the CPU.
 
 Marked ``gpu``: each test skips where no CUDA card is present, and the
@@ -467,6 +467,34 @@ def test_search_step_on_card_matches_the_cpu(card, tmp_path):
     assert cmp["steps"][0] == cmp["steps"][1]
     assert cmp["tolerance_rel"] <= 0.05
     assert cmp["jaccard"] >= 0.95 and cmp["ids"][1] > 100
+
+
+def test_search_from_the_fixture_d_on_card_matches_the_cpu(card, tmp_path):
+    """``SearchStep`` from the committed Bruker ``.d`` (``alphadia_torch/
+    testing/data/tdf_world.d``, frames compressed by real zstd) with a TSV
+    library of its world's targets, on the card and on the CPU: the same
+    steps per optimizer, the final tolerances within 5% (``WF_TOL_REL``),
+    the target IDs at 1% FDR with a Jaccard overlap >= 0.95."""
+    import json
+    from pathlib import Path
+
+    from alphadia_torch.testing.tsv_library import write_transition_list
+    from torch_workflow_worlds import WORLDS, compare_runs, run_search_step
+
+    data = Path(__file__).resolve().parents[1] / "alphadia_torch" / "testing" / "data"
+    world = json.loads((data / "tdf_fixture.json").read_text())["world"]
+    _, prec, frag = make_synthetic_dia(SyntheticConfig(**world))
+    lib_path = tmp_path / "lib.tsv"
+    write_transition_list(lib_path, prec, frag)
+    runs = {
+        device: run_search_step(tmp_path / device, data / "tdf_world.d", lib_path, WORLDS["4d"]["config"], device)
+        for device in ("cuda", "cpu")
+    }
+    assert runs["cuda"][1].device.type == "cuda" and runs["cuda"][1].dia_data.has_mobility
+    cmp = compare_runs(runs["cuda"][1:], runs["cpu"][1:])
+    assert cmp["steps"][0] == cmp["steps"][1]
+    assert cmp["tolerance_rel"] <= 0.05
+    assert cmp["jaccard"] >= 0.95 and cmp["ids"][1] > 50
 
 
 def test_cli_on_card_matches_the_cpu(card, tmp_path, monkeypatch):

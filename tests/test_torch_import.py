@@ -1,7 +1,8 @@
 """The port imports without JAX, the JAX package, pandas or the other
 packages it does not depend on (pyarrow, scikit-learn, xxhash, matplotlib,
-yaml, h5py, lxml, zstandard), and its entry points refuse to run on a
-missing card unless the CPU is asked for."""
+yaml, h5py, lxml, zstandard) and reads a Bruker ``.d`` without them, and
+its entry points refuse to run on a missing card unless the CPU is asked
+for."""
 
 import subprocess
 import sys
@@ -103,8 +104,18 @@ import alphadia_torch.models.property_models
 import alphadia_torch.models.finetune
 import alphadia_torch.models.prediction
 import alphadia_torch.testing.fasta
+import alphadia_torch.rawdata.bruker_tdf
+import alphadia_torch.rawdata.zstd
+import alphadia_torch.testing.tdf_writer
 cfg = alphadia_torch.config.load_default_config()
 assert cfg["tpu"]["gather_slab"] == 256
+import tempfile
+from pathlib import Path
+import numpy as np
+with tempfile.TemporaryDirectory() as d:
+    scans = [(np.array([3, 9]), np.array([5, 6])), (np.array([4]), np.array([7]))]
+    alphadia_torch.testing.tdf_writer.write_tdf(Path(d) / "run.d", [{"time": 0.0, "msms_type": 0, "scans": scans}])
+    assert len(alphadia_torch.rawdata.bruker_tdf.read_bruker_d(Path(d) / "run.d").mz) == 3
 loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not loaded, loaded
 print("ok")
@@ -179,7 +190,7 @@ def test_library_free_build_runs_without_the_blocked_packages(tmp_path):
 
 
 def test_port_sources_name_no_jax():
-    paths = [p for p in (REPO / "alphadia_torch").rglob("*") if p.suffix in (".py", ".cu")]
+    paths = [p for p in (REPO / "alphadia_torch").rglob("*") if p.suffix in (".py", ".cu", ".cpp")]
     for path in paths + [REPO / "chip_smoke.py"]:
         text = path.read_text()
         assert "import jax" not in text and "alphadia_tpu" not in text, path

@@ -220,16 +220,26 @@ def test_sequence_world_follows_chem(with_mobility):
         np.testing.assert_array_equal(frag[c], frag0[c])
 
 
-@pytest.mark.parametrize("name", ["run.hdf", "run.d", "run.raw"])
+@pytest.mark.parametrize("name", ["run.hdf", "run.raw"])
 def test_raw_formats_without_a_reader_raise(tmp_path, name):
-    """``.hdf`` and ``.d`` raise until their readers' slice (the error names
-    the decoder each needs), other formats as unsupported; the formats the
-    error calls supported are only those that read."""
+    """``.hdf`` raises until its reader's slice (the error names the HDF5
+    reader it needs), other formats as unsupported; the formats the error
+    calls supported are those that read, ``.d`` among them."""
     from alphadia_torch.rawdata import load_raw_file
 
-    later = {"run.hdf": "HDF5", "run.d": "zstd"}.get(name)
+    later = {"run.hdf": "HDF5"}.get(name)
     with pytest.raises(ValueError, match=later or "Unsupported") as e:
         load_raw_file(tmp_path / name)
     supported = str(e.value).split("Supported now:" if later else "Supported:")[1]
-    assert ".mzML" in supported and ".npz" in supported
-    assert ".hdf" not in supported and ".d " not in supported and ".d," not in supported
+    assert ".mzML" in supported and ".npz" in supported and ".d (Bruker TDF)" in supported
+    assert ".hdf" not in supported
+
+
+def test_a_missing_d_directory_raises(tmp_path):
+    """``.d`` reads through the Bruker reader, which names what a TDF
+    directory needs."""
+    from alphadia_torch.rawdata import load_raw_file
+    from alphadia_torch.rawdata.bruker_tdf import TdfFormatError
+
+    with pytest.raises(TdfFormatError, match="not a TDF .d directory"):
+        load_raw_file(tmp_path / "run.d")

@@ -144,10 +144,10 @@ def test_a_raw_file_that_fails_is_collected(tmp_path, monkeypatch):
     names its reader's slice. With no run left, the cross-run outputs find
     no PSMs (``NoPsmFoundError``, as in the JAX package)."""
     monkeypatch.setattr(SearchStep, "load_library", lambda self: SpecLibFlat({}, {}))
-    s = step(tmp_path, config={"raw_paths": [str(tmp_path / "run.d")]})
+    s = step(tmp_path, config={"raw_paths": [str(tmp_path / "run.hdf")]})
     with pytest.raises(NoPsmFoundError):
         s.run()
-    assert len(s.errors) == 1 and "zstd" in s.errors[0][1]
+    assert len(s.errors) == 1 and "HDF5" in s.errors[0][1]
 
 
 # ---------------------------------------------------------------------------

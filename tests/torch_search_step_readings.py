@@ -6,6 +6,13 @@ it runs on the card as well as on the CPU. Usage:
     PYTHONPATH=. python3 tests/torch_search_step_readings.py --peptides 6000 --windows 12 --random-states 0,1,2
     PYTHONPATH=. python3 tests/torch_search_step_readings.py --peptides 25000 --windows 12 --mobility --random-states 0,1,2
 
+With ``--bruker`` it runs the CLI instead, ``alphadia-torch -f run_4d.d -l
+lib.tsv``, on phase [11c]'s inputs (the 4D quarter world as a ``.d`` of the
+port's writer, calibration batch 2,000) and prints one JSON line of
+``d_readings`` a random state, the values that phase gates:
+
+    PYTHONPATH=. python3 tests/torch_search_step_readings.py --bruker --random-states 0,1,2,3,4,5
+
 The world is ``chip_smoke.py``'s (600 cycles, 80 noise peaks a spectrum,
 seed 5) at the given size; ``--peptides 1500 --windows 3`` (3D) and
 ``--peptides 6250 --windows 3 --mobility --batch-size 2000`` (4D) are the
@@ -37,6 +44,7 @@ def main() -> None:
     ap.add_argument("--batch-size", type=int, default=None, help="calibration.batch_size (default: the config's)")
     ap.add_argument("--random-states", default="0,1,2")
     ap.add_argument("--device", default=None, help="cpu, or the card (the default)")
+    ap.add_argument("--bruker", action="store_true", help="the CLI from phase [11c]'s .d (the world options unused)")
     opt = ap.parse_args()
     logging.disable(logging.WARNING)
     where = "cpu"
@@ -44,6 +52,9 @@ def main() -> None:
         import torch
 
         where = torch.cuda.get_device_name(0)
+    if opt.bruker:
+        bruker_readings([int(x) for x in opt.random_states.split(",")], opt.device, where)
+        return
     world = dict(
         n_peptides=opt.peptides, n_windows=opt.windows, n_cycles=600, noise_peaks_per_spectrum=80, seed=5,
         with_mobility=opt.mobility,
@@ -68,6 +79,38 @@ def main() -> None:
                 f"({where})",
                 flush=True,
             )
+
+
+def bruker_readings(states, device, where) -> None:
+    """The port's CLI on phase [11c]'s ``.d`` and TSV library at each random
+    state: one JSON line of ``d_readings`` (with the CLI's wall) a state."""
+    import hashlib
+    import json
+    import os
+
+    import alphadia_torch.cli as cli
+    from torch_workflow_worlds import D_BATCH, d_readings, d_sha256, write_d_inputs
+
+    if device is not None:
+        os.environ["ALPHADIA_TORCH_DEVICE"] = device
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        d_path, lib, truth, cycle_rt, _ = write_d_inputs(tmp)
+        print(json.dumps({"d_sha256": d_sha256(d_path), "lib_sha256": hashlib.sha256(lib.read_bytes()).hexdigest()}))
+        for state in states:
+            out = tmp / f"out{state}"
+            argv = ["-o", str(out), "-f", str(d_path), "-l", str(lib), "--config-dict", json.dumps(
+                {"general": {"random_state": state, "save_figures": False}, "calibration": {"batch_size": D_BATCH}})]
+            t0 = time.perf_counter()
+            code = 0
+            try:
+                cli.run(argv)
+            except SystemExit as e:
+                code = e.code
+            wall = time.perf_counter() - t0
+            readings = d_readings(out, truth, cycle_rt) if code == 0 else {}
+            print(json.dumps({"random_state": state, "exit": code, **readings, "wall_s": wall, "device": where}),
+                  flush=True)
 
 
 if __name__ == "__main__":

@@ -397,3 +397,146 @@ def library_free_readings(out, truth: dict, cycle_rt, fdr: float = 0.01) -> dict
         "decoys": int((accepted & ~target).sum()),
         "protein_groups": len(set(prec["pg.name"][prec["precursor.decoy"] == 0].tolist())),
     }
+
+
+# phase [11c] of ``chip_smoke.py``: the 4D quarter world of phase [8]
+# (6,250 peptides + decoys, 3 windows, 600 cycles, with mobility, from
+# sequences) written as a Bruker ``.d`` by the port's writer, its targets as
+# a TSV transition list, searched through the CLI at calibration batch 2,000
+D_WORLD = dict(
+    n_peptides=6250, n_windows=3, n_cycles=600, noise_peaks_per_spectrum=80, seed=5, with_mobility=True,
+    from_sequence=True,
+)
+D_BATCH = 2000
+
+
+def write_d_inputs(tmp, world: dict = D_WORLD, **writer_kw):
+    """A seeded world (with one decoy a target, as ``chip_smoke.make_spectra``
+    makes it) as a ``.d`` directory of the port's TDF writer and a TSV
+    transition list of its targets: (``.d`` path, library path, targets,
+    the run's cycle RTs, the spectra written)."""
+    import numpy as np
+
+    from alphadia_torch.rawdata import DiaData
+    from alphadia_torch.testing.synthetic import SyntheticConfig, add_synthetic_decoys, make_synthetic_dia
+    from alphadia_torch.testing.tdf_writer import spectrum_data_to_tdf
+    from alphadia_torch.testing.tsv_library import write_transition_list
+
+    spectra, prec, frag = make_synthetic_dia(SyntheticConfig(**world))
+    prec, frag = add_synthetic_decoys(prec, frag)
+    targets = np.nonzero(prec["decoy"] == 0)[0]
+    truth = {k: v[targets] for k, v in prec.items()}
+    d_path, lib_path = spectrum_data_to_tdf(spectra, tmp / "run_4d.d", **writer_kw), tmp / "lib.tsv"
+    write_transition_list(lib_path, truth, frag)
+    return d_path, lib_path, truth, DiaData.from_spectra(spectra).cycle_rt, spectra
+
+
+def d_sha256(d_path) -> str:
+    """sha256 of a ``.d`` directory's content: the bytes of
+    ``analysis.tdf_bin`` and the rows of every table of ``analysis.tdf``
+    (SQLite's file bytes carry its library's version)."""
+    import hashlib
+    import sqlite3
+    from pathlib import Path
+
+    d_path = Path(d_path)
+    h = hashlib.sha256((d_path / "analysis.tdf_bin").read_bytes())
+    con = sqlite3.connect(f"file:{d_path / 'analysis.tdf'}?mode=ro", uri=True)
+    try:
+        for (table,) in con.execute("SELECT name FROM sqlite_master WHERE type='table' ORDER BY name").fetchall():
+            h.update(table.encode())
+            for row in con.execute(f"SELECT * FROM {table} ORDER BY rowid"):
+                h.update(repr(row).encode())
+    finally:
+        con.close()
+    return h.hexdigest()
+
+
+def d_readings(out, truth: dict, cycle_rt, fdr: float = 0.01) -> dict:
+    """What phase [11c] gates, from a CLI run's output folder on the run
+    ``run_4d`` (either package's files): the identified and false shares at
+    1% FDR (``search_id_shares``), the final RT tolerance, the protein groups
+    at 1% protein FDR, and the median absolute error of the observed
+    mobility of the accepted targets against the generator's truth."""
+    from pathlib import Path
+
+    import numpy as np
+
+    from alphadia_torch.utils.parquet import read_parquet
+    from alphadia_torch.utils.tsv import read_tsv
+
+    out = Path(out)
+    psm = read_parquet(out / "quant" / "run_4d" / "psm.parquet")
+    identified, false, n_t, n_d = search_id_shares(cycle_rt, truth, psm, fdr)
+    prec = read_parquet(out / "precursors.parquet")
+    row = {(str(s), int(z)): i for i, (s, z) in enumerate(zip(truth["sequence"], truth["charge"]))}
+    sel = (prec["precursor.decoy"] == 0) & (prec["precursor.qval"] <= fdr)
+    rows = [row[(str(s), int(z))] for s, z in zip(prec["precursor.sequence"][sel], prec["precursor.charge"][sel])]
+    mob_err = np.abs(prec["precursor.mobility.observed"][sel] - truth["_truth_mobility"][np.array(rows, np.int64)])
+    return {
+        "identified": identified, "false": false, "targets": n_t, "decoys": n_d,
+        "rt_error": float(read_tsv(out / "stat.tsv")["optimization.rt_error"][0]),
+        "protein_groups": len(set(prec["pg.name"][prec["precursor.decoy"] == 0].tolist())),
+        "mobility_error_median": float(np.median(mob_err)) if len(mob_err) else float("nan"),
+    }
+
+
+def tdf_quantized(spectra, mz_range=(100.0, 1700.0), tof_max_index=1_600_000, im_range=(0.5, 1.6), n_scans=927):
+    """What reading back ``spectrum_data_to_tdf(spectra)`` (at these
+    defaults, one window a frame) must give, from the input through the
+    reader's converters: each peak's m/z and 1/K0 to the nearest tof index
+    and scan, the peaks of one (scan, tof) cell of a spectrum summed
+    (intensities rounded, at least 1), each spectrum in scan-major order
+    sorted stably by the converted m/z. Returns (the expected
+    ``SpectrumData``, the largest m/z error in ppm of any input peak, the
+    largest 1/K0 error of those whose scan lies on the scan grid, and the
+    count of those off it, which the writer puts on the first or last
+    scan)."""
+    import numpy as np
+
+    from alphadia_torch.rawdata.bruker_tdf import ScanImConverter, TofMzConverter
+    from alphadia_torch.rawdata.source import SpectrumData
+
+    tof2mz, scan2im = TofMzConverter(*mz_range, tof_max_index), ScanImConverter(*im_range, n_scans)
+    counts = (spectra.peak_stop_idx - spectra.peak_start_idx).astype(np.int64)
+    spec = np.repeat(np.arange(spectra.n_spectra, dtype=np.int64), counts)
+    src = np.repeat(spectra.peak_start_idx - (np.cumsum(counts) - counts), counts) + np.arange(int(counts.sum()))
+    mz = spectra.mz[src]
+    tof = np.round((np.sqrt(mz.astype(np.float64)) - tof2mz.intercept) / tof2mz.slope).astype(np.int64)
+    im = spectra.mobility[src].astype(np.float64)
+    raw_scan = np.round((im - scan2im.intercept) / scan2im.slope)
+    inside = (raw_scan >= 0) & (raw_scan <= n_scans - 1)
+    scan = np.clip(raw_scan, 0, n_scans - 1).astype(np.int64)
+    worst_ppm = float(np.max(np.abs(tof2mz(tof).astype(np.float64) / mz - 1.0)) * 1e6) if len(mz) else 0.0
+    worst_im = float(np.max(np.abs(scan2im(scan).astype(np.float64) - im)[inside])) if inside.any() else 0.0
+    inten = np.maximum(np.round(spectra.intensity[src]), 1).astype(np.int64)
+    order = np.lexsort((tof, scan, spec))
+    spec, scan, tof, inten = spec[order], scan[order], tof[order], inten[order]
+    first = np.nonzero(np.r_[True, (spec[1:] != spec[:-1]) | (scan[1:] != scan[:-1]) | (tof[1:] != tof[:-1])])[0]
+    inten = np.add.reduceat(inten, first)
+    spec, scan, tof = spec[first], scan[first], tof[first]
+    mz_q = tof2mz(tof)
+    order = np.lexsort((mz_q, spec))
+    n = np.bincount(spec, minlength=spectra.n_spectra).astype(np.int64)
+    start = np.cumsum(n) - n
+    expected = SpectrumData(
+        rt=spectra.rt, ms_level=spectra.ms_level, isolation_lower_mz=spectra.isolation_lower_mz,
+        isolation_upper_mz=spectra.isolation_upper_mz, peak_start_idx=start, peak_stop_idx=start + n,
+        mz=mz_q[order], intensity=inten[order].astype(np.float32), mobility=scan2im(scan[order]),
+    )
+    return expected, worst_ppm, worst_im, int((~inside).sum())
+
+
+def same_spectra(a, b) -> bool:
+    """Every array of two ``SpectrumData`` equal in dtype and bit for bit."""
+    import numpy as np
+
+    fields = ("rt", "ms_level", "isolation_lower_mz", "isolation_upper_mz", "peak_start_idx", "peak_stop_idx", "mz",
+              "intensity", "mobility")
+    for f in fields:
+        x, y = getattr(a, f), getattr(b, f)
+        if (x is None) != (y is None):
+            return False
+        if x is not None and (x.dtype != y.dtype or not np.array_equal(x, y)):
+            return False
+    return True
