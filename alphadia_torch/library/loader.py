@@ -9,7 +9,9 @@ charge), each cell's value converted as pandas would infer the column
 (integers, floats, else text; pandas' missing-value markers as NaN), a
 later row overwriting an earlier one in the same fragment cell.
 
-Libraries in HDF come with the HDF slice of the port.
+``load_speclib_hdf`` reads the two HDF formats of ``SpecLibBase.save_hdf`` /
+``SpecLibFlat.save_hdf`` and alphabase's layout (the frames under the root or
+``library``), through the port's HDF5 reader.
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ import numpy as np
 
 from alphadia_torch.library.chem import UNIMOD_ID_TO_NAME as _UNIMOD_NAMES
 from alphadia_torch.library.pipeline import ProcessingStep
-from alphadia_torch.library.speclib import SpecLibBase
+from alphadia_torch.library.speclib import BASE_FORMAT, FLAT_FORMAT, SpecLibBase, SpecLibFlat, _df_from_hdf
+from alphadia_torch.utils import hdf5
 
 logger = logging.getLogger(__name__)
 
@@ -215,6 +218,44 @@ def load_speclib_tsv(path: str | Path) -> SpecLibBase:
     return SpecLibBase(precursor_df, mz_mat, int_mat, col_names)
 
 
+def load_speclib_hdf(path: str | Path, thread_count: int = 1):
+    """Our HDF formats; else alphabase's frames under the root or ``library``."""
+    with hdf5.File(path, threads=thread_count) as f:
+        fmt = f.attrs.get("format", "")
+        if fmt == BASE_FORMAT:
+            return SpecLibBase.load_hdf(path, thread_count)
+        if fmt == FLAT_FORMAT:
+            return SpecLibFlat.load_hdf(path, thread_count)
+        root = f["library"] if "library" in f else f
+        if "precursor_df" in root:
+            prec = _hdf_group_to_df(root["precursor_df"])
+            frames = [_hdf_group_to_df(root[k]) if k in root else None for k in ("fragment_mz_df", "fragment_intensity_df")]
+            return SpecLibBase.from_frames(prec, *frames)
+    raise ValueError(f"Unrecognized speclib HDF layout in {path}")
+
+
+def _hdf_group_to_df(group) -> dict:
+    """A frame of ``_df_to_hdf``, else every 1-D dataset of the group in
+    name order (variable-length strings as ``str``); sub-groups, other
+    shapes and datasets outside the reader's subset are skipped."""
+    if "columns" in group.attrs:
+        return _df_from_hdf(group)
+    data = {}
+    for k in group:
+        node = group[k]
+        if not isinstance(node, hdf5.Dataset):
+            continue
+        try:
+            vals = node[()]
+        except ValueError:
+            continue
+        if getattr(vals, "ndim", 1) == 1:
+            if vals.dtype.kind == "S":
+                vals = vals.astype(str).astype(object)
+            data[k] = vals
+    return data
+
+
 class DynamicLoader(ProcessingStep):
     """The library loader by file extension."""
 
@@ -224,10 +265,7 @@ class DynamicLoader(ProcessingStep):
     def forward(self, path):
         suffix = Path(path).suffix.lower()
         if suffix in (".hdf", ".hdf5", ".h5"):
-            raise ValueError(
-                f"HDF libraries ({Path(path).name}) are not read yet: library HDF I/O comes with the HDF slice of "
-                "the port (ROADMAP queue 1). Supported now: .tsv, .csv, .txt transition lists"
-            )
+            return load_speclib_hdf(path)
         if suffix in (".tsv", ".csv", ".txt"):
             return load_speclib_tsv(path)
         raise ValueError(f"Unsupported library format {suffix}")

@@ -11,20 +11,28 @@
   type u8 (ASCII of the series letter), loss_type u8, charge u8, number u8,
   position u8).
 
+Both save to and load from HDF in the JAX package's layout (the root
+attribute ``format``: ``BASE_FORMAT`` / ``FLAT_FORMAT``; a group per
+frame with the attributes ``n_rows`` and ``columns`` and a dataset per
+column, text columns as fixed-length strings; a fragment matrix as a frame
+of one column per charged fragment type), through the port's HDF5 writer.
+
 The JAX package's ``library/speclib.py`` with column dicts for its pandas
-frames. Libraries in HDF come with the HDF slice of the port.
+frames.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from alphadia_torch.exceptions import NotPortedError
 from alphadia_torch.library import chem
+from alphadia_torch.utils import hdf5
 from alphadia_torch.utils.frame import concat, copy_frame, n_rows
 from alphadia_torch.utils.hashing import xxh64
 
 _HASH_MASK = 0x7FFF_FFFF_FFFF_FFFF
+BASE_FORMAT = "alphadia_tpu_speclib_base"
+FLAT_FORMAT = "alphadia_tpu_speclib_flat"
 
 
 def str_col(df: dict, name: str):
@@ -140,6 +148,67 @@ class SpecLibBase:
             self.charged_frag_types,
         )
 
+    def save_hdf(self, path, thread_count: int = 1) -> None:
+        root = hdf5.Group({"format": BASE_FORMAT})
+        _df_to_hdf(root.create_group("precursor_df"), self.precursor_df)
+        for name, matrix in (("fragment_mz_df", self.fragment_mz), ("fragment_intensity_df", self.fragment_intensity)):
+            if matrix is not None:
+                _df_to_hdf(root.create_group(name), _matrix_frame(matrix, self.charged_frag_types))
+        hdf5.write(path, root, threads=thread_count)
+
+    @classmethod
+    def load_hdf(cls, path, thread_count: int = 1) -> "SpecLibBase":
+        with hdf5.File(path, threads=thread_count) as f:
+            prec = _df_from_hdf(f["precursor_df"])
+            frames = [_df_from_hdf(f[k]) if k in f else None for k in ("fragment_mz_df", "fragment_intensity_df")]
+        return cls.from_frames(prec, *frames)
+
+    @classmethod
+    def from_frames(cls, precursor_df: dict, mz_df: dict | None, intensity_df: dict | None) -> "SpecLibBase":
+        """A library of fragment frames (a column per charged fragment type),
+        the intensity frame's columns taken in the m/z frame's order."""
+        types = list(mz_df if mz_df is not None else intensity_df or [])
+        matrices = []
+        for frame in (mz_df, intensity_df):
+            if frame is not None and sorted(frame) != sorted(types):
+                raise ValueError(f"fragment frames with different columns: {sorted(types)} and {sorted(frame)}")
+            matrices.append(None if frame is None else _frame_matrix(frame, types))
+        return cls(precursor_df, *matrices, types)
+
+
+def _matrix_frame(matrix: np.ndarray, columns: list[str]) -> dict:
+    """A fragment matrix as a frame of one column per fragment type."""
+    return {c: np.ascontiguousarray(matrix[:, j]) for j, c in enumerate(columns)}
+
+
+def _frame_matrix(frame: dict, columns: list[str]) -> np.ndarray:
+    """A fragment frame's ``columns`` as a 2-D matrix (rows x columns)."""
+    if not columns:
+        return np.zeros((n_rows(frame), 0), dtype=np.float32)
+    return np.stack([np.asarray(frame[c]) for c in columns], axis=1)
+
+
+def _df_to_hdf(group: hdf5.Group, df: dict) -> None:
+    group.attrs["n_rows"] = n_rows(df)
+    group.attrs["columns"] = list(df)
+    for col, vals in df.items():
+        vals = np.asarray(vals)
+        if vals.dtype.kind in "OU":
+            vals = vals.astype("S")
+        group.create_dataset(str(col), vals)
+
+
+def _df_from_hdf(group) -> dict:
+    """A frame of ``_df_to_hdf``: the ``columns`` attribute's order,
+    fixed-length strings back as ``str``."""
+    data = {}
+    for col in list(group.attrs["columns"]):
+        vals = group[str(col)][:]
+        if vals.dtype.kind == "S":
+            vals = vals.astype(str).astype(object)
+        data[col] = vals
+    return data
+
 
 class SpecLibFlat:
     """Flat spectral library, the search's input."""
@@ -159,7 +228,13 @@ class SpecLibFlat:
     def copy(self) -> "SpecLibFlat":
         return SpecLibFlat(copy_frame(self.precursor_df), copy_frame(self.fragment_df))
 
-    def save_hdf(self, path) -> None:
-        raise NotPortedError(
-            f"cannot write {path}: libraries in HDF come with the HDF slice of the port (ROADMAP queue 1 item 4)"
-        )
+    def save_hdf(self, path, thread_count: int = 1) -> None:
+        root = hdf5.Group({"format": FLAT_FORMAT})
+        _df_to_hdf(root.create_group("precursor_df"), self.precursor_df)
+        _df_to_hdf(root.create_group("fragment_df"), self.fragment_df)
+        hdf5.write(path, root, threads=thread_count)
+
+    @classmethod
+    def load_hdf(cls, path, thread_count: int = 1) -> "SpecLibFlat":
+        with hdf5.File(path, threads=thread_count) as f:
+            return cls(_df_from_hdf(f["precursor_df"]), _df_from_hdf(f["fragment_df"]))

@@ -8,9 +8,8 @@
   group;
 - fragments are the base library's rows of each kept precursor.
 
-``SpecLibFlat.save_hdf`` waits for the HDF slice of the port, so
-``SearchPlanOutput`` builds this library and then warns that it cannot
-write it.
+``SearchPlanOutput`` writes it as ``speclib.mbr.hdf`` (``SpecLibFlat.save_hdf``),
+which the search plan's MBR step loads.
 """
 
 from __future__ import annotations

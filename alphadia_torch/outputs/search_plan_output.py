@@ -15,9 +15,11 @@ pickles and writes:
 - ``precursor.matrix``, ``peptide.matrix``, ``pg.matrix`` (and
   ``fragment.matrix`` with ``save_fragment_quant_matrix``): directLFQ or
   QuantSelect intensities, groups x runs;
-- the MBR library, built and then refused by ``save_hdf`` (HDF waits for
-  ROADMAP queue 1 item 4): the failure is logged as a warning, as the JAX
-  package logs any failure of that step.
+- with ``general.save_mbr_library``, the MBR library (``outputs/mbr``:
+  the precursors identified at ``fdr.fdr``, their observed RT) as
+  ``speclib.mbr.hdf``, the MBR step's input; a library that cannot be built
+  or written is logged as a warning, as the JAX package logs any failure of
+  that step.
 
 Tables are parquet (``search_output.file_format``) or TSV. ``timings``
 holds the stages' walls (read, grouping, protein FDR with the MLP's fit
@@ -142,7 +144,7 @@ class SearchPlanOutput:
             mbr_lib = MbrLibraryBuilder(
                 fdr=self.config["fdr"]["fdr"], keep_decoys=self.config["fdr"]["keep_decoys_in_mbr_library"]
             )(psm_df, base_spec_lib)
-            mbr_lib.save_hdf(self.output_folder / "speclib.mbr.hdf")
+            mbr_lib.save_hdf(self.output_folder / "speclib.mbr.hdf", thread_count=self.config["general"]["thread_count"])
         except Exception as e:
             logger.warning(f"could not build MBR library: {e}")
 

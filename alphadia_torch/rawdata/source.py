@@ -70,21 +70,15 @@ class SpectrumData:
         )
 
 
-# formats whose readers come with a later slice of the port: HDF5, which the
-# card machine has no reader for
-_LATER_READERS = {
-    ".hdf": "alphaRaw HDF (needs an HDF5 reader)",
-    ".hdf5": "alphaRaw HDF (needs an HDF5 reader)",
-    ".h5": "alphaRaw HDF (needs an HDF5 reader)",
-}
-SUPPORTED = ".mzML, .mzML.gz, .d (Bruker TDF), .npz"
+SUPPORTED = ".mzML, .mzML.gz, .hdf (alphaRaw), .d (Bruker TDF), .npz"
 
 
 def load_raw_file(path: str | Path, thread_count: int = 4) -> SpectrumData:
-    """Read a raw file by its extension: ``.mzML`` (plain or gzipped), a
-    Bruker ``.d`` directory and ``.npz`` (``save_npz``), each reader on
-    ``thread_count`` threads where it has any. ``.hdf`` raises until the
-    slice that ports its reader; other formats raise as unsupported."""
+    """Read a raw file by its extension: ``.mzML`` (plain or gzipped),
+    ``.hdf`` / ``.hdf5`` / ``.h5`` (alphaRaw's layout or the spectra cache),
+    a Bruker ``.d`` directory and ``.npz`` (``save_npz``), each reader on
+    ``thread_count`` threads where it has any; other formats raise as
+    unsupported."""
     path = Path(path)
     name = path.name.lower()
     suffix = path.suffix.lower()
@@ -92,17 +86,16 @@ def load_raw_file(path: str | Path, thread_count: int = 4) -> SpectrumData:
         from alphadia_torch.rawdata.mzml import read_mzml
 
         return read_mzml(path, thread_count=thread_count)
+    if suffix in (".hdf", ".hdf5", ".h5"):
+        from alphadia_torch.rawdata.hdf import read_alpharaw_hdf
+
+        return read_alpharaw_hdf(path, thread_count=thread_count)
     if suffix == ".d":
         from alphadia_torch.rawdata.bruker_tdf import read_bruker_d
 
         return read_bruker_d(path, thread_count=thread_count)
     if suffix == ".npz":
         return load_npz(path)
-    if suffix in _LATER_READERS:
-        raise ValueError(
-            f"{_LATER_READERS[suffix]} files ({path.name}) are not read yet: their reader comes with a later "
-            f"slice of the port (ROADMAP queue 1, the .hdf reader). Supported now: {SUPPORTED}"
-        )
     raise ValueError(
         f"Unsupported raw file format '{suffix}' ({path}). Supported: {SUPPORTED}; convert other vendor "
         "formats (.raw/.wiff) to mzML first."

@@ -1,30 +1,43 @@
-"""The search plan: one search step, or (not ported yet) a transfer step
-before it and an MBR step after it.
+"""The search plan: one search step, or a library step and a
+match-between-runs (MBR) step after it.
 
 ``SearchPlan(output_directory, config, cli_config).run_plan()`` runs a
-``SearchStep`` in the output directory. The multistep plan's transfer step
+``SearchStep`` in the output directory. With ``general.mbr_step_enabled`` it
+first runs the library step in ``library/`` with ``save_mbr_library``, whose
+outputs write ``speclib.mbr.hdf`` (the precursors it identified); the MBR
+step then searches every run again in the output directory with that flat
+library, from the library step's optimized tolerances
+(``_get_optimized_values_config``: the median over runs of ``stat.tsv``'s
+``optimization.*``) and ``MBR_EXTRA``. The transfer step
 (``general.transfer_step_enabled``) needs the transfer library and model
-(ROADMAP queue 1 items 5 and 6) and its MBR step
-(``general.mbr_step_enabled``) reads the MBR library back from HDF (items 4
-and 5): both raise ``NotPortedError`` before any work.
-``_get_optimized_values_config`` gives the tolerances a later step starts
-from (the median over runs of ``stat.tsv``'s ``optimization.*``).
+(ROADMAP queue 1 items 5 and 6): it raises ``NotPortedError`` before any
+step runs.
 """
 
 from __future__ import annotations
 
+import logging
 from pathlib import Path
 
 import numpy as np
 
 from alphadia_torch.constants.keys import StatOutputCols
 from alphadia_torch.exceptions import NotPortedError
+from alphadia_torch.reporting import PROGRESS
 from alphadia_torch.search_step import SearchStep
 from alphadia_torch.utils.tsv import read_tsv
+
+logger = logging.getLogger(__name__)
 
 TRANSFER_STEP_NAME = "transfer"
 LIBRARY_STEP_NAME = "library"
 MBR_STEP_NAME = "mbr"
+
+# the MBR step's config overrides (the reference's constants/multistep.yaml)
+MBR_EXTRA = {
+    "search": {"target_num_candidates": 5},
+    "fdr": {"inference_strategy": "library"},
+}
 
 
 def _merge(*layers: dict) -> dict:
@@ -55,12 +68,20 @@ class SearchPlan:
                 "general.transfer_step_enabled: the transfer step needs the transfer library and model, which come "
                 "with the requant and prediction slices of the port (ROADMAP queue 1 items 5 and 6)"
             )
-        if self.mbr_step_enabled:
-            raise NotPortedError(
-                "general.mbr_step_enabled: the MBR step reads the MBR library from HDF, which comes with the HDF "
-                "slice of the port (ROADMAP queue 1 items 4 and 5)"
-            )
-        self.run_step(self.output_directory, {})
+        if not self.mbr_step_enabled:
+            self.run_step(self.output_directory, {})
+            return
+        logger.log(PROGRESS, "=== multistep: library step ===")
+        library_dir = self.output_directory / LIBRARY_STEP_NAME
+        self.run_step(library_dir, {"general": {"save_mbr_library": True}})
+        mbr_lib = library_dir / "speclib.mbr.hdf"
+        logger.log(PROGRESS, "=== multistep: mbr step ===")
+        # the library step's optimized tolerances: without them the MBR step
+        # would optimize again from the wide initial ones
+        mbr_extra = _merge(self._get_optimized_values_config(library_dir), MBR_EXTRA)
+        if mbr_lib.exists():
+            mbr_extra = _merge(mbr_extra, {"library_path": str(mbr_lib), "general": {"input_library_type": "flat"}})
+        self.run_step(self.output_directory, mbr_extra)
 
     def run_step(self, output_dir: Path, extra_config: dict) -> None:
         SearchStep(

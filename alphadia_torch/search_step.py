@@ -4,12 +4,14 @@
 
 - the config: the packaged defaults < ``config`` < ``cli_config`` <
   ``extra_config`` (multistep extras), frozen to ``frozen_config.yaml``;
-- the library: a TSV/CSV transition list, or with
+- the library: a TSV/CSV transition list or an HDF library, or with
   ``library_prediction.enabled`` and no library a FASTA digest
   (``fasta_paths``), through the harmonize steps and ``SimplePrediction``
   (the property models on the step's device), decoys and flattening
-  (``load_library``);
-- each raw file (``.mzML``, ``.mzML.gz``, ``.npz``): ``PeptideCentricWorkflow``
+  (``load_library``); ``general.save_library`` writes ``speclib.hdf`` after
+  the decoys, ``general.save_flat_library`` ``speclib.flat.hdf`` after
+  flattening. A flat HDF library (the MBR step's) only gets its decoys;
+- each raw file (``.mzML``, ``.mzML.gz``, ``.hdf``, ``.d``, ``.npz``): ``PeptideCentricWorkflow``
   ``load`` -> ``search_parameter_optimization`` -> ``extraction`` on the
   card (``device=None``) or where ``device`` says, then
   ``quant/<run>/psm.parquet`` and ``frag.parquet``; ``reuse_quant`` skips a
@@ -22,8 +24,7 @@ their FDR, ``stat.tsv``, ``internal.tsv``, the LFQ matrices), on the host;
 under ``general.fail_fast`` a failed raw file's error is raised before it.
 Settings whose code comes with a later slice raise ``NotPortedError``
 naming it, before any work: several hosts, ``general.profile_directory``,
-``transfer_library.enabled``, ``library_multiplexing.enabled``,
-``general.save_library`` / ``save_flat_library`` (HDF).
+``transfer_library.enabled``, ``library_multiplexing.enabled``.
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ from alphadia_torch.config import load_default_config
 from alphadia_torch.constants.keys import SearchStepFiles
 from alphadia_torch.exceptions import CustomError, NoLibraryAvailableError, NotPortedError
 from alphadia_torch.library import chem
-from alphadia_torch.library.decoy import DecoyGenerator
+from alphadia_torch.library.decoy import DecoyGenerator, generate_flat_decoys
 from alphadia_torch.library.digest import digest_fasta
 from alphadia_torch.library.flatten import FlattenLibrary, InitFlatColumns, LogFlatLibraryStats
 from alphadia_torch.library.harmonize import AnnotateFasta, IsotopeGenerator, PrecursorInitializer, RTNormalization
@@ -122,11 +123,7 @@ class SearchStep:
         lib_path = self.config["library_path"]
         fasta_paths = list(self.config["fasta_paths"] or [])
         predict = self.config["library_prediction"]["enabled"]
-        for key in ("save_library", "save_flat_library"):
-            if self.config["general"][key]:
-                raise NotPortedError(
-                    f"general.{key}: libraries in HDF come with the HDF slice of the port (ROADMAP queue 1 item 4)"
-                )
+        threads = self.config["general"]["thread_count"]
         if self.config["library_multiplexing"]["enabled"]:
             raise NotPortedError(
                 "library_multiplexing.enabled: the multiplexed library and its requant come with the requant slice "
@@ -150,6 +147,12 @@ class SearchStep:
         else:
             raise NoLibraryAvailableError()
 
+        if isinstance(lib, SpecLibFlat):
+            # a flat input (the MBR library, saved without decoys unless
+            # fdr.keep_decoys_in_mbr_library): its decoys made anew
+            logger.info("Flat library loaded as-is")
+            return generate_flat_decoys(lib)
+
         steps = [PrecursorInitializer(self.config["library_loading"]["drop_decoys"])]
         if fasta_paths and lib_path:
             steps.append(AnnotateFasta(fasta_paths))
@@ -171,13 +174,18 @@ class SearchStep:
         lib = ProcessingPipeline(steps + [IsotopeGenerator(), RTNormalization()])(lib)
 
         lib = DecoyGenerator("diann")(lib)
-        return ProcessingPipeline(
+        if self.config["general"]["save_library"]:
+            lib.save_hdf(self.output_folder / "speclib.hdf", thread_count=threads)
+        flat = ProcessingPipeline(
             [
                 FlattenLibrary(self.config["search"]["top_k_fragments_scoring"], self.config["search"]["min_fragment_intensity"]),
                 InitFlatColumns(),
                 LogFlatLibraryStats(),
             ]
         )(lib)
+        if self.config["general"]["save_flat_library"]:
+            flat.save_hdf(self.output_folder / "speclib.flat.hdf", thread_count=threads)
+        return flat
 
     def run(self) -> None:
         self._refuse_later_slices()

@@ -62,10 +62,12 @@ Phases, in order; any failure exits non-zero:
 9. the CLI across two runs: ``alphadia-torch`` (``cli.run``) on two runs
    of the search step's quarter 3D world written as mzML, with a TSV
    library whose protein groups overlap, at the default config on the
-   card: the library build, each run's search step and the cross-run
-   outputs timed (``SearchPlanOutput.build``: read, grouping, protein FDR
-   with its MLP fit, LFQ per level, writes); the tables read back, the
-   MBR library's refusal logged once; the kernel's launches per run, each
+   card: the library build, each run's search step (the mzML reader a
+   parse, its spectra cache written; the single step on run 0 after it a
+   cache read) and the cross-run outputs timed (``SearchPlanOutput.build``:
+   read, grouping, protein FDR with its MLP fit, LFQ per level, writes);
+   the tables and the MBR library (``speclib.mbr.hdf``) read back; the
+   kernel's launches per run, each
    pass's first launch of every step held against the plain version; the
    IDs per run, the protein groups, the LFQ groups and the run-to-run
    ratio gated against the JAX package's CLI on the same inputs, the
@@ -98,7 +100,23 @@ Phases, in order; any failure exits non-zero:
    launches (each pass's first launch of every step held against the plain
    version), the IDs, the final RT tolerance, the protein groups and the
    observed mobility gated against the JAX package's CLI on the same files;
-12. the ``{"kernels": [...]}`` line, then the card's name and power limit,
+12. HDF: (a) the committed fixture (h5py's files through the JAX
+   package's writers: spectra caches 3D and 4D, a base and a flat library,
+   an alphaRaw file with vlen strings, shuffle+deflate and LZF) read by
+   the port's reader with the sha256 and attributes of h5py's reading,
+   each written again by the port's writer and read back the same; (b) an
+   alphaRaw ``.hdf`` of 50,000,000 peaks (the 3D world tiled in RT) and a
+   flat library of 1,000,000 precursors x 12 fragments written and read
+   back equal on 1 and on every host thread (MB/s, rows/s), cut where a
+   probe says the phase would pass its 90 s aim; (c) ``alphadia-torch``
+   with the MBR step (library step -> ``speclib.mbr.hdf`` -> MBR step) on
+   phase [9]'s two runs as alphaRaw ``.hdf`` with ``save_library`` and
+   ``save_flat_library``: each step's wall and its outputs', the kernel's
+   launches per step (each pass's first launch of every step held against
+   the plain version), the saved libraries read back equal to the frames
+   in memory, the IDs per run, the protein groups and the MBR library's
+   size gated against the JAX package's CLI on the same inputs;
+13. the ``{"kernels": [...]}`` line, then the card's name and power limit,
    then the ``{"ok": true, ...}`` line last.
 """
 
@@ -1476,6 +1494,7 @@ def phase8(root, label, tag, spectra, prec, frag, name, card, launches, secs, tm
     from alphadia_torch.ops import xic_cuda
     from alphadia_torch.testing.tsv_library import write_transition_list
     from alphadia_torch.utils.parquet import read_parquet
+    from alphadia_torch.workflow.managers import raw_file_manager
     from alphadia_torch.workflow.peptidecentric.optimization_handler import OptimizationHandler
 
     sys.path.insert(0, str(root / "tests"))
@@ -1513,6 +1532,7 @@ def phase8(root, label, tag, spectra, prec, frag, name, card, launches, secs, tm
         (RTNormalization, "forward", "harmonize"), (SpecLibBase, "hash_precursors", "hashing"),
         (DecoyGenerator, "forward", "decoys"), (FlattenLibrary, "forward", "flatten"), (InitFlatColumns, "forward", "flatten"),
         (search_step.SearchStep, "load_library", "library"), (search_step, "write_parquet", "parquet"),
+        (raw_file_manager, "save_spectra_hdf", "cache_write"), (raw_file_manager, "read_alpharaw_hdf", "cache_read"),
     ]
     out = tmp / f"search{tag or '_3d'}"
     config = {
@@ -1554,7 +1574,7 @@ def phase8(root, label, tag, spectra, prec, frag, name, card, launches, secs, tm
         f"harmonize {s['harmonize']:.4f} s of which hashing {s['hashing']:.4f} s, decoys {s['decoys']:.4f} s, "
         f"flatten {s['flatten']:.4f} s): {len(lib.precursor_df['precursor_idx'])} precursors, "
         f"{len(lib.fragment_df['mz_library'])} fragments after flattening; workflow load {timings['load']:.4f} s "
-        f"(of which the mzML reader {s['reader']:.4f} s), optimization {timings['optimization']:.4f} s "
+        f"(of which the mzML reader {cache_split({k.replace('reader', 'parse'): v for k, v in s.items()})}), optimization {timings['optimization']:.4f} s "
         f"({len(wf.optimization_handler.step_log)} steps), extraction {timings['extraction']:.4f} s; parquet writes "
         f"{s['parquet']:.4f} s; max_memory_allocated {peak / 2**30:.3f} GiB ({name}, {card})"
     )
@@ -1639,6 +1659,23 @@ def band(values, rel=0.0, add=0.0):
     return min(values) * (1 - rel) - add, max(values) * (1 + rel) + add
 
 
+def spectra_cache_times() -> MethodTimes:
+    """Host seconds of an mzML read through ``RawFileManager``: the XML
+    parse, and the spectra cache's write or read."""
+    from alphadia_torch.rawdata import mzml
+    from alphadia_torch.workflow.managers import raw_file_manager
+
+    return MethodTimes([(mzml, "read_mzml", "parse"), (raw_file_manager, "save_spectra_hdf", "cache_write"),
+                        (raw_file_manager, "read_alpharaw_hdf", "cache_read")])
+
+
+def cache_split(s) -> str:
+    if "cache_read" in s and "parse" not in s:
+        return f"a cache read, {s['cache_read']:.4f} s"
+    return (f"a parse, {s.get('parse', 0.0):.4f} s, and the cache written in {s.get('cache_write', 0.0):.4f} s"
+            + (f" (and a cache read of {s['cache_read']:.4f} s)" if "cache_read" in s else ""))
+
+
 def phase9(root, name, card, launches, secs, tmp):
     """``alphadia-torch`` (``cli.run``) on two runs at the default config,
     on the card: the walls (library build, each run's search step,
@@ -1651,6 +1688,7 @@ def phase9(root, name, card, launches, secs, tmp):
 
     import alphadia_torch.cli as cli
     import alphadia_torch.search_step as search_step
+    from alphadia_torch.library.loader import load_speclib_hdf
     from alphadia_torch.ops import xic_cuda
     from alphadia_torch.outputs.search_plan_output import SearchPlanOutput
     from alphadia_torch.utils.parquet import read_parquet
@@ -1732,7 +1770,7 @@ def phase9(root, name, card, launches, secs, tmp):
     SearchPlanOutput.build = kept_build
     code = 0
     try:
-        with Recorder() as rec:
+        with Recorder() as rec, spectra_cache_times() as ct:
             torch.cuda.synchronize()
             xic_cuda.launches = 0
             t0 = time.perf_counter()
@@ -1750,6 +1788,7 @@ def phase9(root, name, card, launches, secs, tmp):
         search_step.SearchStep.load_library = load_library
         SearchPlanOutput.build = build
         output_logger.removeHandler(counter)
+    log(f"[9] the runs' mzML: {cache_split(ct.seconds)} ({name}, {card})")
     log(f"[9] alphadia-torch {' '.join(a if len(a) < 60 else '...' for a in argv)}: exit {code}, wall {wall:.4f} s")
     if code != 0:
         raise AssertionError(f"the CLI exited {code}")
@@ -1776,9 +1815,13 @@ def phase9(root, name, card, launches, secs, tmp):
             raise AssertionError(f"CLI: {f} is missing")
         frame = read_tsv(out / f) if f.endswith(".tsv") else read_parquet(out / f)
         rows[f] = len(next(iter(frame.values())))
-    log(f"[9] files read back (rows): {json.dumps(rows)}; MBR warnings {len(counter.mbr)}: {counter.mbr[:1]}")
-    if len(counter.mbr) != 1 or "ROADMAP queue 1 item 4" not in counter.mbr[0]:
-        raise AssertionError("CLI: the MBR library's refusal was not logged once")
+    mbr_lib = load_speclib_hdf(out / "speclib.mbr.hdf")
+    log(
+        f"[9] files read back (rows): {json.dumps(rows)}; the MBR library speclib.mbr.hdf read back: "
+        f"{len(mbr_lib.precursor_df['precursor_idx'])} precursors; MBR warnings {len(counter.mbr)}: {counter.mbr[:1]}"
+    )
+    if counter.mbr:
+        raise AssertionError("CLI: the MBR library could not be built or written")
 
     worst = [0.0, 0.0]
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=DEVICE)
@@ -1823,7 +1866,9 @@ def phase9(root, name, card, launches, secs, tmp):
     # / 33.7868 s, so the runs are not held to each other)
     single = search_step.SearchStep(str(tmp / "cli_single"), config={
         "library_path": str(lib), "raw_paths": [str(raws[0])], "general": {"random_state": 0, "log_level": "PROGRESS"}})
-    single.run()
+    with spectra_cache_times() as ct:
+        single.run()
+    log(f"[9] the single step's read of run_0.mzML: {cache_split(ct.seconds)} ({name}, {card})")
     stat = read_tsv(tmp / "cli_single" / "stat.tsv")
     for r, (wf, _) in enumerate(captured["runs"]):
         for k in ("ms1_error", "ms2_error", "rt_error"):
@@ -2509,6 +2554,406 @@ def phase11c(root, name, card, launches, secs, tmp):
         raise AssertionError(f".d search: gates failed: {failed}")
     return worst
 
+# ---------------------------------------------------------------------------
+# 12. HDF: the committed fixture, a run's and a library's size, the MBR plan
+# ---------------------------------------------------------------------------
+# phase [12b]: an hour-long Orbitrap DIA run holds tens to hundreds of
+# millions of centroided peaks; a predicted human library ~1 million
+# precursors of 12 fragments. Both are cut (and the cut printed) where a
+# probe's rates say the phase would pass its aim
+HDF_RUN_PEAKS = 50_000_000
+HDF_LIB_PRECURSORS = 1_000_000
+HDF_LIB_FRAGMENTS = 12
+HDF_BUDGET_S = 90.0
+# phase [12c]: the MBR plan (library step -> speclib.mbr.hdf -> MBR step)
+# through alphadia-torch on phase [9]'s two runs written as alphaRaw .hdf by
+# the port's writer (tests/torch_workflow_worlds.write_cli_inputs(...,
+# raw_format="hdf")), with save_library and save_flat_library on, random
+# state 0. The inputs are held by the sha256 of their decoded arrays (zlib's
+# bytes may differ between machines). The JAX package's CLI with the MBR
+# step on the same files read, on the CPU, at random states 0 to 5
+# (`PYTHONPATH=.:tests python tests/test_torch_mbr.py --random-state 0 1 2
+# 3 4 5`), the readings below: states 3-5 left the band of states 0-2 (the
+# MBR library 1,312-1,335 precursors against 1,318; false on run_1 up to
+# 0.0456 against 0.0416), so the gates take all six, as phase [11c] does.
+# Gates, as phase [9]: identified at least the least less 0.005, false at
+# most 0.02 or the largest + 0.005; the protein groups and the MBR
+# library's precursors within 2% of JAX's band
+MBR_INPUT_SHA256 = [
+    "ca8b6ed99740f92a93be1d17c557cb7c4d285af3e7dc5776e084541ae0e5478d",
+    "9a7ec600b3b2cae08717623186b7d35bda014cca79b2d40d9f56e76ab7b5ec90",
+]
+MBR_JAX_READINGS = {  # random states 0 to 5
+    "identified_run_0": [0.9984114376489277, 0.9992057188244639, 1.0, 0.9992057188244639, 1.0, 0.9992057188244639],
+    "false_run_0": [0.0485362095531587, 0.052428681572860444, 0.04984662576687116, 0.04973221117061974,
+                    0.04284621270084162, 0.04573643410852713],
+    "identified_run_1": [0.9992057188244639, 0.9992057188244639, 0.9992057188244639, 1.0, 0.9992057188244639,
+                         0.9992057188244639],
+    "false_run_1": [0.03557617942768755, 0.04160246533127889, 0.03554868624420402, 0.0362095531587057,
+                    0.040769230769230766, 0.04559505409582689],
+    "protein_groups": [519, 520, 518, 519, 519, 523],
+    "mbr_library_precursors": [1318, 1318, 1318, 1328, 1335, 1312],
+}
+MBR_REL_BAND = 0.02
+
+
+def phase12a(root, name, card, tmp):
+    """The committed fixture (h5py's files) read by the port with the sha256
+    and attributes of h5py's reading; each written again by the port's
+    writer and read back the same."""
+    sys.path.insert(0, str(root / "tests"))
+    from torch_hdf_fixture import DATA, FILES, file_record, rewritten
+
+    record = json.loads((DATA / "hdf_fixture.json").read_text())
+    threads = os.cpu_count() or 1
+    for fname in FILES:
+        t0 = time.perf_counter()
+        got = file_record(DATA / fname)
+        t_read = time.perf_counter() - t0
+        out = tmp / fname
+        t0 = time.perf_counter()
+        rewritten(DATA / fname, out, threads=threads)
+        t_write = time.perf_counter() - t0
+        again = file_record(out)
+        size = out.stat().st_size
+        out.unlink()
+        want = record["files"][fname]
+        log(
+            f"[12a] {fname}: {len(want['datasets'])} datasets, {(DATA / fname).stat().st_size} B; read in {t_read:.4f} s "
+            f"with h5py's sha256 and attributes: {got == want}; written again in {t_write:.4f} s ({size} B) and read "
+            f"back the same: {again == want} (host of {name}, {card})"
+        )
+        if got != want or again != want:
+            raise AssertionError(f"the HDF fixture {fname} reads otherwise than h5py read it")
+
+
+def tiled_run(spectra, n_peaks):
+    """``spectra`` repeated in RT (each copy after the last, one cycle
+    apart) until ``n_peaks`` peaks, the last copy cut at a spectrum."""
+    from alphadia_torch.rawdata.source import SpectrumData
+
+    per = len(spectra.mz)
+    copies = -(-n_peaks // per)
+    span = float(spectra.rt[-1] - spectra.rt[0]) + float(np.median(np.diff(spectra.rt))) * 4
+    counts = spectra.peak_stop_idx - spectra.peak_start_idx
+    stop = np.cumsum(np.tile(counts, copies))
+    keep = int(np.searchsorted(stop, n_peaks, side="right")) or 1
+    n = int(stop[keep - 1])
+    start = np.concatenate([[0], stop[: keep - 1]]).astype(np.int64)
+    rt = (np.tile(spectra.rt.astype(np.float64), copies) + np.repeat(np.arange(copies) * span, spectra.n_spectra))[:keep]
+    return SpectrumData(
+        rt=rt.astype(np.float32), ms_level=np.tile(spectra.ms_level, copies)[:keep],
+        isolation_lower_mz=np.tile(spectra.isolation_lower_mz, copies)[:keep],
+        isolation_upper_mz=np.tile(spectra.isolation_upper_mz, copies)[:keep],
+        peak_start_idx=start, peak_stop_idx=stop[:keep].astype(np.int64),
+        mz=np.tile(spectra.mz, copies)[:n], intensity=np.tile(spectra.intensity, copies)[:n],
+    )
+
+
+def seeded_flat_library(n_prec, n_frag, seed=12):
+    """A flat library of ``n_prec`` precursors of ``n_frag`` fragments with
+    the search's columns (text as object arrays, as the port's loaders give)."""
+    from alphadia_torch.library.speclib import SpecLibFlat
+
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(7, 26, n_prec)
+    letters = np.frombuffer(b"ACDEFGHIKLMNPQRSTVWY", np.uint8)
+    raw = letters[rng.integers(0, 20, (n_prec, 25))]
+    raw[np.arange(25)[None, :] >= lens[:, None]] = 0
+    seqs = raw.view("S25").ravel().astype(str).astype(object)
+    prot = np.char.add("P", rng.integers(10000, 99999, n_prec).astype(str)).astype(object)
+    n_f = n_prec * n_frag
+    prec = {
+        "sequence": seqs, "proteins": prot,
+        "mods": np.where(rng.random(n_prec) < 0.2, "Oxidation@M", "").astype(object),
+        "charge": rng.integers(1, 5, n_prec).astype(np.uint8),
+        "mz_library": rng.uniform(400, 1200, n_prec).astype(np.float32),
+        "rt_library": rng.uniform(0, 3600, n_prec).astype(np.float32),
+        "decoy": (np.arange(n_prec) % 2).astype(np.uint8),
+        "elution_group_idx": (np.arange(n_prec) // 2).astype(np.uint32),
+        "precursor_idx": np.arange(n_prec, dtype=np.uint32),
+        "mod_seq_charge_hash": rng.integers(0, 2**63 - 1, n_prec).astype(np.int64),
+        "flat_frag_start_idx": (np.arange(n_prec) * n_frag).astype(np.uint32),
+        "flat_frag_stop_idx": (np.arange(1, n_prec + 1) * n_frag).astype(np.uint32),
+        "is_shared": rng.random(n_prec) < 0.1,
+    }
+    frag = {
+        "mz_library": rng.uniform(150, 1800, n_f).astype(np.float32),
+        "intensity": rng.random(n_f).astype(np.float32),
+        "cardinality": np.ones(n_f, np.uint8), "type": rng.choice(np.array([98, 121], np.uint8), n_f),
+        "loss_type": np.zeros(n_f, np.uint8), "charge": rng.integers(1, 3, n_f).astype(np.uint8),
+        "number": rng.integers(1, 20, n_f).astype(np.uint8), "position": rng.integers(0, 20, n_f).astype(np.uint8),
+    }
+    return SpecLibFlat(prec, frag)
+
+
+def phase12b(root, name, card, tmp):
+    """An alphaRaw ``.hdf`` of a run's size and a flat library's, each
+    written by the port and read back equal, on 1 and on every host thread."""
+    from alphadia_torch.library.speclib import SpecLibFlat
+    from alphadia_torch.rawdata.hdf import read_alpharaw_hdf
+    from alphadia_torch.testing.alpharaw_writer import save_alpharaw_hdf
+
+    sys.path.insert(0, str(root / "tests"))
+    from torch_workflow_worlds import same_spectra
+
+    threads = os.cpu_count() or 1
+    t_phase = time.perf_counter()
+    base, _, _ = make_spectra(N_PEPTIDES, N_CYCLES)
+    # probe: a twentieth of each size written and read on one thread, to
+    # size the phase to its aim
+    probe = tiled_run(base, HDF_RUN_PEAKS // 20)
+    t0 = time.perf_counter()
+    save_alpharaw_hdf(tmp / "probe.hdf", probe)
+    read_alpharaw_hdf(tmp / "probe.hdf")
+    run_rate = len(probe.mz) / (time.perf_counter() - t0)
+    lib = seeded_flat_library(HDF_LIB_PRECURSORS // 20, HDF_LIB_FRAGMENTS)
+    t0 = time.perf_counter()
+    lib.save_hdf(tmp / "probe_lib.hdf")
+    SpecLibFlat.load_hdf(tmp / "probe_lib.hdf")
+    lib_rate = (HDF_LIB_PRECURSORS // 20) / (time.perf_counter() - t0)
+    # each size is written and read on one thread and again on N, then
+    # made and compared: ~2.5 single-thread passes
+    predicted = 2.5 * (HDF_RUN_PEAKS / run_rate + HDF_LIB_PRECURSORS / lib_rate)
+    cut = min(1.0, HDF_BUDGET_S / predicted)
+    n_peaks, n_prec = int(HDF_RUN_PEAKS * cut), int(HDF_LIB_PRECURSORS * cut)
+    log(
+        f"[12b] probe: {run_rate:.0f} peaks/s and {lib_rate:.0f} precursors/s written and read on one thread; "
+        f"predicted {predicted:.1f} s at full size against the {HDF_BUDGET_S:.0f} s aim: "
+        + (f"sizes cut to {cut:.3f}: {n_peaks} peaks, {n_prec} precursors" if cut < 1 else "full size")
+    )
+    del probe, lib
+    (tmp / "probe.hdf").unlink()
+    (tmp / "probe_lib.hdf").unlink()
+
+    run = tiled_run(base, n_peaks)
+    del base
+    raw_bytes = sum(getattr(run, f).nbytes for f in ("rt", "ms_level", "isolation_lower_mz", "isolation_upper_mz",
+                                                     "peak_start_idx", "peak_stop_idx", "mz", "intensity"))
+    lib = seeded_flat_library(n_prec, HDF_LIB_FRAGMENTS)
+    # text columns counted as the fixed-length strings written
+    lib_bytes = sum((v.astype("S") if v.dtype == object else v).nbytes
+                    for frame in (lib.precursor_df, lib.fragment_df) for v in frame.values())
+    for t in sorted({1, threads}):
+        path = tmp / f"run_{t}.hdf"
+        t0 = time.perf_counter()
+        save_alpharaw_hdf(path, run, thread_count=t)
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = read_alpharaw_hdf(path, thread_count=t)
+        t_read = time.perf_counter() - t0
+        size = path.stat().st_size
+        equal = same_spectra(back, run)
+        del back
+        log(
+            f"[12b] alphaRaw .hdf of {len(run.mz)} peaks, {run.n_spectra} spectra ({raw_bytes / 1e6:.1f} MB of arrays, "
+            f"{size / 1e6:.1f} MB on disk) on {t} thread(s): written in {t_write:.4f} s ({raw_bytes / t_write / 1e6:.1f} "
+            f"MB/s, {len(run.mz) / t_write:.0f} peaks/s), read in {t_read:.4f} s ({raw_bytes / t_read / 1e6:.1f} MB/s, "
+            f"{len(run.mz) / t_read:.0f} peaks/s); read back equal: {equal} (host of {name}, {card})"
+        )
+        if not equal:
+            raise AssertionError("the run's .hdf reads back otherwise than it was written")
+        if t != threads:
+            path.unlink()
+        path = tmp / f"lib_{t}.hdf"
+        t0 = time.perf_counter()
+        lib.save_hdf(path, thread_count=t)
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = SpecLibFlat.load_hdf(path, thread_count=t)
+        t_read = time.perf_counter() - t0
+        size = path.stat().st_size
+        equal = same_frame(back.precursor_df, lib.precursor_df) and same_frame(back.fragment_df, lib.fragment_df)
+        del back
+        path.unlink()
+        n_rows = n_prec * (1 + HDF_LIB_FRAGMENTS)
+        log(
+            f"[12b] flat library of {n_prec} precursors x {HDF_LIB_FRAGMENTS} fragments ({lib_bytes / 1e6:.1f} MB of "
+            f"arrays, {size / 1e6:.1f} MB on disk) on {t} thread(s): written in {t_write:.4f} s ({lib_bytes / t_write / 1e6:.1f} "
+            f"MB/s, {n_rows / t_write:.0f} rows/s), read in {t_read:.4f} s ({lib_bytes / t_read / 1e6:.1f} MB/s, "
+            f"{n_rows / t_read:.0f} rows/s); read back equal: {equal} (host of {name}, {card})"
+        )
+        if not equal:
+            raise AssertionError("the library's .hdf reads back otherwise than it was written")
+    (tmp / f"run_{threads}.hdf").unlink()
+    log(f"[12b] phase wall {time.perf_counter() - t_phase:.2f} s (aim {HDF_BUDGET_S:.0f} s)")
+
+
+def phase12c(root, name, card, launches, secs, tmp):
+    """``alphadia-torch`` with the MBR step on two alphaRaw ``.hdf`` runs:
+    the walls of each step and its outputs, the kernel's launches per step
+    (each pass's first launch of every step held against the plain
+    version, every launch timed again alone), the saved libraries read back
+    equal to the frames in memory, and the gates above."""
+    import torch
+
+    import alphadia_torch.cli as cli
+    import alphadia_torch.search_step as search_step
+    from alphadia_torch.library.loader import load_speclib_hdf
+    from alphadia_torch.library.speclib import SpecLibBase, SpecLibFlat
+    from alphadia_torch.ops import xic_cuda
+    from alphadia_torch.outputs.search_plan_output import SearchPlanOutput
+    from alphadia_torch.rawdata.hdf import read_alpharaw_hdf
+    from alphadia_torch.workflow.peptidecentric.optimization_handler import OptimizationHandler
+
+    sys.path.insert(0, str(root / "tests"))
+    from torch_workflow_worlds import CLI_WORLD, cli_readings, spectra_sha256, write_cli_inputs
+
+    t0 = time.perf_counter()
+    (tmp / "mbr_inputs").mkdir()
+    raws, lib, truth, cycle_rts = write_cli_inputs(tmp / "mbr_inputs", CLI_WORLD, raw_format="hdf")
+    sha = [spectra_sha256(read_alpharaw_hdf(r)) for r in raws]
+    log(
+        f"[12c] inputs: {len(raws)} runs of {CLI_WORLD['n_peptides']} peptides as alphaRaw .hdf "
+        f"({sum(r.stat().st_size for r in raws) / 2**20:.1f} MiB), the TSV library of phase [9]; sha256 of the decoded "
+        f"arrays {sha}; made in {time.perf_counter() - t0:.2f} s"
+    )
+    if sha != MBR_INPUT_SHA256:
+        raise AssertionError("the MBR plan's inputs are not the arrays of the JAX readings")
+
+    steps, saved = [], {}
+    run = search_step.SearchStep.run
+    build = SearchPlanOutput.build
+    base_save, flat_save = SpecLibBase.save_hdf, SpecLibFlat.save_hdf
+    workflow_cls = search_step.PeptideCentricWorkflow
+    process_batch = OptimizationHandler._process_batch
+
+    class Captured(workflow_cls):
+        def load(self, *a, **k):
+            rec.stage = "load"
+            return super().load(*a, **k)
+
+        def extraction(self):
+            rec.stage = "extraction"
+            return super().extraction()
+
+    def staged(handler):
+        rec.stage = f"step{len(handler.step_log)}"
+        return process_batch(handler)
+
+    def timed_run(self):
+        entry = {"dir": Path(self.output_folder).name, "first_call": len(rec.calls)}
+        steps.append(entry)
+        t = time.perf_counter()
+        try:
+            return run(self)
+        finally:
+            torch.cuda.synchronize()
+            entry["wall"] = time.perf_counter() - t
+            entry["calls"] = len(rec.calls) - entry["first_call"]
+
+    def timed_build(self, *a, **k):
+        t = time.perf_counter()
+        try:
+            return build(self, *a, **k)
+        finally:
+            steps[-1]["outputs"] = time.perf_counter() - t
+
+    def kept(save):
+        def keep(self, path, *a, **k):
+            saved[Path(path).relative_to(out).as_posix()] = self
+            return save(self, path, *a, **k)
+
+        return keep
+
+    out = tmp / "mbr_out"
+    argv = ["-o", str(out), "-f", str(raws[0]), "-f", str(raws[1]), "-l", str(lib), "--config-dict", json.dumps({
+        "general": {"random_state": 0, "log_level": "PROGRESS", "mbr_step_enabled": True, "save_library": True,
+                    "save_flat_library": True}})]
+    search_step.PeptideCentricWorkflow = Captured
+    OptimizationHandler._process_batch = staged
+    search_step.SearchStep.run = timed_run
+    SearchPlanOutput.build = timed_build
+    SpecLibBase.save_hdf, SpecLibFlat.save_hdf = kept(base_save), kept(flat_save)
+    code = 0
+    try:
+        with Recorder() as rec:
+            torch.cuda.synchronize()
+            xic_cuda.launches = 0
+            t0 = time.perf_counter()
+            try:
+                cli.run(argv)
+            except SystemExit as e:
+                code = e.code
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            n_launch = xic_cuda.launches
+    finally:
+        search_step.PeptideCentricWorkflow = workflow_cls
+        OptimizationHandler._process_batch = process_batch
+        search_step.SearchStep.run = run
+        SearchPlanOutput.build = build
+        SpecLibBase.save_hdf, SpecLibFlat.save_hdf = base_save, flat_save
+    log(f"[12c] alphadia-torch {' '.join(a if len(a) < 60 else '...' for a in argv)}: exit {code}, wall {wall:.4f} s")
+    if code != 0:
+        raise AssertionError(f"the MBR plan exited {code}")
+    if n_launch != len(rec.calls) or n_launch == 0:
+        raise AssertionError(f"MBR plan: {n_launch} kernel launches counted, {len(rec.calls)} wrapper calls recorded")
+    if [s_["dir"] for s_ in steps] != ["library", out.name]:
+        raise AssertionError(f"MBR plan: steps ran in {[s_['dir'] for s_ in steps]}")
+
+    mbr_lib = load_speclib_hdf(out / "library" / "speclib.mbr.hdf")
+    n_mbr = len(mbr_lib.precursor_df["precursor_idx"])
+    worst = [0.0, 0.0]
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=DEVICE)
+    for label, entry in zip(("library_step", "mbr_step"), steps):
+        calls = rec.calls[entry["first_call"] : entry["first_call"] + entry["calls"]]
+        launches[f"mbr_plan_{label}"] = len(calls)
+        secs[f"mbr_plan_{label}"] = entry["wall"]
+        w = first_launches_against_plain("[12c]", label, calls)
+        worst = [max(worst[0], w[0]), max(worst[1], w[1])]
+        per_pass = summed_device_ms(calls, flush)
+        for (stage, pass_name), acc in sorted(per_pass.items()):
+            log(
+                f"[12c] {label} kernel, {stage} {pass_name}: {acc['launches']} launches, {acc['ms']:.4f} ms warm "
+                f"({acc['bound_ms'] / acc['ms']:.2f} of bound), L2 flushed {acc['flushed_ms']:.4f} ms, bound "
+                f"{acc['bound_ms']:.4f} ms ({acc['bytes'] / 1e6:.2f} MB) ({name}, {card})"
+            )
+        kernel_ms = sum(x["ms"] for x in per_pass.values())
+        log(
+            f"[12c] {label}: wall {entry['wall']:.4f} s (outputs {entry['outputs']:.4f} s); {len(calls)} kernel "
+            f"launches, summed {kernel_ms:.4f} ms warm, bound {sum(x['bound_ms'] for x in per_pass.values()):.4f} ms, "
+            f"{kernel_ms / (entry['wall'] * 1e3):.5f} of the step's wall ({name}, {card})"
+        )
+    del flush
+
+    same = {}
+    for rel, lib_mem in sorted(saved.items()):
+        back = load_speclib_hdf(out / rel)
+        if isinstance(lib_mem, SpecLibBase):
+            same[rel] = (same_frame(back.precursor_df, lib_mem.precursor_df)
+                         and back.charged_frag_types == lib_mem.charged_frag_types
+                         and np.array_equal(back.fragment_mz, lib_mem.fragment_mz)
+                         and np.array_equal(back.fragment_intensity, lib_mem.fragment_intensity))
+        else:
+            same[rel] = same_frame(back.precursor_df, lib_mem.precursor_df) and same_frame(back.fragment_df,
+                                                                                        lib_mem.fragment_df)
+    log(f"[12c] saved libraries read back equal to the frames in memory: {json.dumps(same)}; the MBR library "
+        f"(library/speclib.mbr.hdf): {n_mbr} precursors")
+    wanted = {"library/speclib.hdf", "library/speclib.flat.hdf", "library/speclib.mbr.hdf", "speclib.mbr.hdf"}
+    if set(same) != wanted or not all(same.values()):
+        raise AssertionError(f"MBR plan: the saved libraries {same} (wanted {sorted(wanted)})")
+
+    got = cli_readings(out, truth, cycle_rts)
+    got["mbr_library_precursors"] = n_mbr
+    log(f"[12c] readings at the MBR step: {json.dumps(got)}")
+    jax = MBR_JAX_READINGS
+    checks = []
+    for r in range(2):
+        checks += [(f"identified_run_{r}", got[f"identified_run_{r}"], (min(jax[f"identified_run_{r}"]) - 0.005, 1.0)),
+                   (f"false_run_{r}", got[f"false_run_{r}"], (0.0, max(0.02, max(jax[f"false_run_{r}"]) + 0.005)))]
+    for k in ("protein_groups", "mbr_library_precursors"):
+        checks.append((k, got[k], band(jax[k], rel=MBR_REL_BAND)))
+    failed = []
+    for k, v, (lo, hi) in checks:
+        ok = lo <= v <= hi
+        log(f"[12c] gate {k}: {v:.4f} in [{lo:.4f}, {hi:.4f}] {'ok' if ok else 'FAILED'} ({name}, {card})")
+        if not ok:
+            failed.append(k)
+    if failed:
+        raise AssertionError(f"MBR plan: gates failed: {failed}")
+    return worst
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2701,7 +3146,14 @@ def main(argv=None) -> int:
         max_abs_err = max(max_abs_err, w[0])
         log(f"[11c] kernel launches per run: {json.dumps(launches)} ({name}, {card})")
 
-    # ---- 12. summary lines --------------------------------------------------
+        # ---- 12. HDF ----------------------------------------------------------
+        phase12a(root, name, card, tmp)
+        phase12b(root, name, card, tmp)
+        w = phase12c(root, name, card, launches, secs, tmp)
+        max_abs_err = max(max_abs_err, w[0])
+        log(f"[12c] kernel launches per run: {json.dumps(launches)} ({name}, {card})")
+
+    # ---- 13. summary lines --------------------------------------------------
     kernels = {
         "kernels": [
             {

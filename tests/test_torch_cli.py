@@ -5,8 +5,8 @@
   same exit codes (127 user error, 126 business error, 1 anything else),
   ``--version``, the reference aliases, ``-d`` with a ``.d`` directory,
   ``output_directory`` from a ``--config`` YAML.
-- Refusals: the transfer step, the MBR step and ``--profile-dir`` exit 127
-  and name their ROADMAP items; without a card and without
+- Refusals: the transfer step (alone or with the MBR step) and
+  ``--profile-dir`` exit 127 and name their ROADMAP items; without a card and without
   ``ALPHADIA_TORCH_DEVICE=cpu`` the CLI exits non-zero naming the device.
 - End to end, ROADMAP queue 1 item 2's gate: both CLIs on the two runs of
   ``tests/e2e/test_cli_e2e.py`` (300 peptides, 6 windows, 350 cycles, seed
@@ -111,7 +111,10 @@ def test_config_file_directory_scan_and_aliases(tmp_path, on_cpu, monkeypatch):
 
 REFUSALS = {
     "transfer_step": (["--config-dict", json.dumps({"general": {"transfer_step_enabled": True}})], "items 5 and 6"),
-    "mbr_step": (["--config-dict", json.dumps({"general": {"mbr_step_enabled": True}})], "items 4 and 5"),
+    "transfer_and_mbr_steps": (
+        ["--config-dict", json.dumps({"general": {"transfer_step_enabled": True, "mbr_step_enabled": True}})],
+        "items 5 and 6",
+    ),
     "profile_dir": (["--profile-dir", "prof"], "item 8"),
 }
 

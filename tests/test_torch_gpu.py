@@ -8,7 +8,8 @@ pipelined extraction against sequential selection and scoring, both
 enqueuing every batch before they wait for any, classifier fits on the
 card (one held to a fit on the CPU), the per-run workflow (load ->
 optimization -> extraction), ``SearchStep`` (mzML and TSV library in,
-``psm.parquet`` out; and from the committed Bruker ``.d``) and the CLI on two runs (``alphadia-torch``, the
+``psm.parquet`` out; and from the committed Bruker ``.d`` and alphaRaw
+``.hdf``) and the CLI on two runs (``alphadia-torch``, the
 cross-run tables out) on the card, each held to the same run on the CPU.
 
 Marked ``gpu``: each test skips where no CUDA card is present, and the
@@ -491,6 +492,39 @@ def test_search_from_the_fixture_d_on_card_matches_the_cpu(card, tmp_path):
         for device in ("cuda", "cpu")
     }
     assert runs["cuda"][1].device.type == "cuda" and runs["cuda"][1].dia_data.has_mobility
+    cmp = compare_runs(runs["cuda"][1:], runs["cpu"][1:])
+    assert cmp["steps"][0] == cmp["steps"][1]
+    assert cmp["tolerance_rel"] <= 0.05
+    assert cmp["jaccard"] >= 0.95 and cmp["ids"][1] > 50
+
+
+def test_search_from_the_fixture_hdf_on_card_matches_the_cpu(card, tmp_path):
+    """The committed HDF fixture (``alphadia_torch/testing/data/hdf_*``,
+    written by h5py) read by the port without h5py: every dataset's sha256
+    and every attribute as h5py read them, each file written again by the
+    port's writer and read back the same; then ``SearchStep`` from the
+    alphaRaw ``.hdf`` with a TSV library of its world's targets, on the card
+    and on the CPU: the same steps per optimizer, the final tolerances
+    within 5%, the target IDs at 1% FDR with a Jaccard overlap >= 0.95."""
+    import json
+
+    from alphadia_torch.testing.tsv_library import write_transition_list
+    from torch_hdf_fixture import DATA, FILES, file_record, rewritten
+    from torch_workflow_worlds import WORLDS, compare_runs, run_search_step
+
+    record = json.loads((DATA / "hdf_fixture.json").read_text())
+    for name in FILES:
+        assert file_record(DATA / name) == record["files"][name], name
+        rewritten(DATA / name, tmp_path / name)
+        assert file_record(tmp_path / name) == record["files"][name], name
+    _, prec, frag = make_synthetic_dia(SyntheticConfig(**record["world_3d"]))
+    lib_path = tmp_path / "lib.tsv"
+    write_transition_list(lib_path, prec, frag)
+    runs = {
+        device: run_search_step(tmp_path / device, DATA / "hdf_alpharaw.hdf", lib_path, WORLDS["3d"]["config"], device)
+        for device in ("cuda", "cpu")
+    }
+    assert runs["cuda"][1].device.type == "cuda"
     cmp = compare_runs(runs["cuda"][1:], runs["cpu"][1:])
     assert cmp["steps"][0] == cmp["steps"][1]
     assert cmp["tolerance_rel"] <= 0.05

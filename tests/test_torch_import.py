@@ -1,8 +1,9 @@
 """The port imports without JAX, the JAX package, pandas or the other
 packages it does not depend on (pyarrow, scikit-learn, xxhash, matplotlib,
-yaml, h5py, lxml, zstandard) and reads a Bruker ``.d`` without them, and
-its entry points refuse to run on a missing card unless the CPU is asked
-for."""
+yaml, h5py, lxml, zstandard) and reads a Bruker ``.d`` and writes and reads
+HDF without them, and its entry points refuse to run on a missing card
+unless the CPU is asked for. Its sources name the JAX package only inside
+the HDF format identifiers that both packages write and read."""
 
 import subprocess
 import sys
@@ -107,6 +108,9 @@ import alphadia_torch.testing.fasta
 import alphadia_torch.rawdata.bruker_tdf
 import alphadia_torch.rawdata.zstd
 import alphadia_torch.testing.tdf_writer
+import alphadia_torch.utils.hdf5
+import alphadia_torch.rawdata.hdf
+import alphadia_torch.testing.alpharaw_writer
 cfg = alphadia_torch.config.load_default_config()
 assert cfg["tpu"]["gather_slab"] == 256
 import tempfile
@@ -116,6 +120,15 @@ with tempfile.TemporaryDirectory() as d:
     scans = [(np.array([3, 9]), np.array([5, 6])), (np.array([4]), np.array([7]))]
     alphadia_torch.testing.tdf_writer.write_tdf(Path(d) / "run.d", [{"time": 0.0, "msms_type": 0, "scans": scans}])
     assert len(alphadia_torch.rawdata.bruker_tdf.read_bruker_d(Path(d) / "run.d").mz) == 3
+    from alphadia_torch.rawdata import load_raw_file
+    from alphadia_torch.testing.synthetic import SyntheticConfig, make_synthetic_dia
+    spectra, prec, _ = make_synthetic_dia(SyntheticConfig(n_peptides=20, n_windows=2, n_cycles=10, seed=1))
+    alphadia_torch.testing.alpharaw_writer.save_alpharaw_hdf(Path(d) / "run.hdf", spectra, thread_count=2)
+    assert np.array_equal(load_raw_file(Path(d) / "run.hdf").mz, spectra.mz)
+    flat = alphadia_torch.library.speclib.SpecLibFlat({"sequence": np.array(["PEPTIDE"], dtype=object)}, {"mz": np.ones(3, np.float32)})
+    flat.save_hdf(Path(d) / "lib.hdf")
+    back = alphadia_torch.library.loader.DynamicLoader()(Path(d) / "lib.hdf")
+    assert list(back.precursor_df["sequence"]) == ["PEPTIDE"] and back.fragment_df["mz"].tolist() == [1.0, 1.0, 1.0]
 loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not loaded, loaded
 print("ok")
@@ -189,10 +202,17 @@ def test_library_free_build_runs_without_the_blocked_packages(tmp_path):
     assert proc.stdout.strip().endswith("ok")
 
 
+# file-format identifiers the JAX package writes into its HDF files (root
+# attribute ``format``); the port writes and reads the same strings
+HDF_FORMATS = ("alphadia_tpu_spectra", "alphadia_tpu_speclib_base", "alphadia_tpu_speclib_flat")
+
+
 def test_port_sources_name_no_jax():
     paths = [p for p in (REPO / "alphadia_torch").rglob("*") if p.suffix in (".py", ".cu", ".cpp")]
     for path in paths + [REPO / "chip_smoke.py"]:
         text = path.read_text()
+        for fmt in HDF_FORMATS:
+            text = text.replace(f'"{fmt}"', "")
         assert "import jax" not in text and "alphadia_tpu" not in text, path
 
 

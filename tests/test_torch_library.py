@@ -164,11 +164,28 @@ def test_load_speclib_tsv_matches_jax(tables, variant):
     assert_same_base(theirs, ours, variant)
 
 
-def test_dynamic_loader_refuses_hdf_naming_its_slice(tmp_path):
-    path = tmp_path / "lib.hdf"
-    path.write_bytes(b"")
-    with pytest.raises(ValueError, match="HDF slice"):
-        DynamicLoader()(path)
+@pytest.mark.parametrize("fmt,suffix", [("base", ".hdf"), ("flat", ".h5"), ("base_from_the_port", ".hdf5")])
+def test_dynamic_loader_reads_both_hdf_formats(tmp_path, tables, flat_pair, fmt, suffix):
+    """``DynamicLoader`` on a library the JAX package saved (base: its TSV
+    load; flat: flattened with decoys) and on one the port saved: equal to
+    the library written, and the JAX package's loader reads it equal."""
+    path = tmp_path / f"lib{suffix}"
+    if fmt == "flat":
+        jflat, _ = flat_pair
+        jflat.save_hdf(path)
+        ours = DynamicLoader()(path)
+        assert isinstance(ours, SpecLibFlat)
+        assert_same_flat(jflat, ours, fmt)
+        assert_same_flat(jax_loader.load_speclib_hdf(path), ours, fmt)
+        return
+    jlib = jax_loader.load_speclib_tsv(tables["tsv"])
+    if fmt == "base":
+        jlib.save_hdf(path)
+    else:
+        load_speclib_tsv(tables["tsv"]).save_hdf(path, thread_count=2)
+    ours = DynamicLoader()(path)
+    assert_same_base(jlib, ours, fmt)
+    assert_same_base(jax_loader.load_speclib_hdf(path), ours, fmt)
 
 
 def _harmonized(tables, jax_steps, port_steps):

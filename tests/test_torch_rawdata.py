@@ -220,19 +220,34 @@ def test_sequence_world_follows_chem(with_mobility):
         np.testing.assert_array_equal(frag[c], frag0[c])
 
 
-@pytest.mark.parametrize("name", ["run.hdf", "run.raw"])
+@pytest.mark.parametrize("name", ["run.raw"])
 def test_raw_formats_without_a_reader_raise(tmp_path, name):
-    """``.hdf`` raises until its reader's slice (the error names the HDF5
-    reader it needs), other formats as unsupported; the formats the error
-    calls supported are those that read, ``.d`` among them."""
+    """Formats without a reader raise as unsupported; the formats the error
+    calls supported are those that read, ``.hdf`` and ``.d`` among them."""
     from alphadia_torch.rawdata import load_raw_file
 
-    later = {"run.hdf": "HDF5"}.get(name)
-    with pytest.raises(ValueError, match=later or "Unsupported") as e:
+    with pytest.raises(ValueError, match="Unsupported") as e:
         load_raw_file(tmp_path / name)
-    supported = str(e.value).split("Supported now:" if later else "Supported:")[1]
+    supported = str(e.value).split("Supported:")[1]
     assert ".mzML" in supported and ".npz" in supported and ".d (Bruker TDF)" in supported
-    assert ".hdf" not in supported
+    assert ".hdf (alphaRaw)" in supported
+
+
+@pytest.mark.parametrize("name", ["run.hdf", "run.h5", "run.hdf5"])
+def test_hdf_raw_files_read_as_jax(tmp_path, name):
+    """``.hdf`` / ``.h5`` / ``.hdf5`` read through the alphaRaw reader: a
+    spectra cache of the JAX package gives its arrays."""
+    from alphadia_torch.rawdata import load_raw_file
+    from alphadia_tpu.rawdata.hdf import save_spectra_hdf
+
+    spectra, _, _ = make_synthetic_dia(SyntheticConfig(n_peptides=30, n_windows=2, n_cycles=20, seed=4))
+    save_spectra_hdf(tmp_path / name, spectra)
+    ours = load_raw_file(tmp_path / name, thread_count=2)
+    for f in ("rt", "ms_level", "isolation_lower_mz", "isolation_upper_mz", "peak_start_idx", "peak_stop_idx", "mz",
+              "intensity"):
+        a, b = getattr(spectra, f), getattr(ours, f)
+        assert a.dtype == b.dtype and np.array_equal(a, b), f
+    assert ours.mobility is None
 
 
 def test_a_missing_d_directory_raises(tmp_path):

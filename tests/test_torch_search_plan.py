@@ -4,9 +4,12 @@ no search runs):
 
 - the plain plan runs one step in the output directory with no extras, in
   both packages; the CLI layer decides whether a later step is enabled;
-- the transfer and MBR steps (alone, together, or enabled by the config or
-  the CLI layer) raise ``NotPortedError`` naming their ROADMAP items before
-  any step runs;
+- the MBR plan (enabled by the config or the CLI layer) runs the library
+  step and then the MBR step with the directories and extras of JAX's
+  (the library step's tolerances from its ``stat.tsv``, the flat
+  ``speclib.mbr.hdf`` where it was written);
+- the transfer step (alone or with the MBR step) raises ``NotPortedError``
+  naming its ROADMAP items before any step runs;
 - ``_get_optimized_values_config`` gives JAX's result on the same
   ``stat.tsv`` (medians, a NaN column, no file); ``_merge`` equals JAX's;
 - ``SearchStep.run`` ends with ``SearchPlanOutput.build`` over every raw
@@ -50,11 +53,52 @@ def test_plain_plan_runs_one_step_as_jax(tmp_path, recorded, case):
     assert recorded["port"] == recorded["jax"] == [(str(tmp_path), {})]
 
 
+MBR = {
+    "mbr": ({"general": {"mbr_step_enabled": True}}, {}, ()),
+    "cli_enables_mbr": ({}, {"general": {"mbr_step_enabled": True}}, ()),
+    "library_written": ({"general": {"mbr_step_enabled": True}}, {}, ("speclib.mbr.hdf",)),
+    "tolerances_and_library": ({}, {"general": {"mbr_step_enabled": True}}, ("speclib.mbr.hdf", "stat.tsv")),
+}
+
+
+@pytest.mark.parametrize("case", MBR)
+def test_mbr_plan_runs_the_library_and_mbr_steps_as_jax(tmp_path, monkeypatch, case):
+    """Each package's ``run_step`` recorded; the library step's outputs
+    that the MBR step reads (``speclib.mbr.hdf``, ``stat.tsv``) written by
+    the recording where the case has them."""
+    config, cli, outputs = MBR[case]
+    calls = {"port": [], "jax": []}
+
+    def recorder(key):
+        def run_step(self, d, e):
+            calls[key].append((str(d), e))
+            if str(d).endswith("library"):
+                d.mkdir(parents=True, exist_ok=True)
+                for name in outputs:
+                    if name == "stat.tsv":
+                        pd.DataFrame(STATS["medians"]).to_csv(d / name, sep="\t", index=False)
+                    else:
+                        (d / name).write_bytes(b"")
+
+        return run_step
+
+    monkeypatch.setattr(SearchPlan, "run_step", recorder("port"))
+    monkeypatch.setattr(JaxSearchPlan, "run_step", recorder("jax"))
+    JaxSearchPlan(str(tmp_path / "jax"), config=config, cli_config=cli).run_plan()
+    SearchPlan(str(tmp_path / "port"), config=config, cli_config=cli).run_plan()
+    port = [(d.replace("/port", "/jax"), repr(e).replace("/port/", "/jax/")) for d, e in calls["port"]]
+    assert port == [(d, repr(e)) for d, e in calls["jax"]]
+    (lib_dir, lib_extra), (mbr_dir, mbr_extra) = calls["port"]
+    assert lib_dir == str(tmp_path / "port" / "library") and lib_extra == {"general": {"save_mbr_library": True}}
+    assert mbr_dir == str(tmp_path / "port")
+    assert mbr_extra["search"]["target_num_candidates"] == 5 and mbr_extra["fdr"]["inference_strategy"] == "library"
+    assert ("library_path" in mbr_extra) == ("speclib.mbr.hdf" in outputs)
+    assert ("target_ms2_tolerance" in mbr_extra["search"]) == ("stat.tsv" in outputs)
+
+
 LATER = {
     "transfer": ({"general": {"transfer_step_enabled": True}}, {}, "items 5 and 6"),
-    "mbr": ({"general": {"mbr_step_enabled": True}}, {}, "items 4 and 5"),
     "both": ({"general": {"transfer_step_enabled": True, "mbr_step_enabled": True}}, {}, "items 5 and 6"),
-    "cli_enables_mbr": ({}, {"general": {"mbr_step_enabled": True}}, "items 4 and 5"),
 }
 
 
@@ -130,9 +174,13 @@ def test_search_step_ends_with_the_cross_run_outputs(tmp_path, monkeypatch):
 
 def test_mbr_library_is_built_and_its_write_refused(tmp_path, caplog):
     """The MBR library of a precursor table: kept elution groups, RT from
-    the PSMs, protein groups; ``save_hdf`` refuses (HDF, ROADMAP queue 1
-    item 4) and the output logs JAX's warning."""
+    the PSMs, protein groups; the output writes it as ``speclib.mbr.hdf``,
+    which the port and the JAX package read back equal, and where the write
+    is refused (a directory in the file's place) it logs JAX's warning."""
     import logging
+
+    from alphadia_torch.library.loader import load_speclib_hdf
+    from alphadia_tpu.library.speclib import SpecLibFlat as JaxSpecLibFlat
 
     from alphadia_torch.config import load_default_config
     from alphadia_torch.library.speclib import SpecLibFlat
@@ -162,5 +210,18 @@ def test_mbr_library_is_built_and_its_write_refused(tmp_path, caplog):
     out = SearchPlanOutput(load_default_config(), tmp_path)
     with caplog.at_level(logging.WARNING):
         out._build_mbr_library(psm, SpecLibFlat(prec, frag))
+    assert not [r for r in caplog.records if "could not build MBR library" in r.message]
+    back, theirs = load_speclib_hdf(tmp_path / "speclib.mbr.hdf"), JaxSpecLibFlat.load_hdf(tmp_path / "speclib.mbr.hdf")
+    for frame, want, jax_frame in ((back.precursor_df, lib.precursor_df, theirs.precursor_df),
+                                   (back.fragment_df, lib.fragment_df, theirs.fragment_df)):
+        assert list(frame) == list(want) == list(jax_frame.columns)
+        for c in want:
+            assert frame[c].dtype == jax_frame[c].to_numpy().dtype or frame[c].dtype == object
+            assert np.asarray(frame[c]).tolist() == np.asarray(want[c]).tolist() == jax_frame[c].tolist()
+
+    blocked = SearchPlanOutput(load_default_config(), tmp_path / "blocked")
+    (tmp_path / "blocked" / "speclib.mbr.hdf").mkdir(parents=True)
+    with caplog.at_level(logging.WARNING):
+        blocked._build_mbr_library(psm, SpecLibFlat(prec, frag))
     warnings = [r.message for r in caplog.records if "could not build MBR library" in r.message]
-    assert len(warnings) == 1 and "ROADMAP queue 1 item 4" in warnings[0]
+    assert len(warnings) == 1

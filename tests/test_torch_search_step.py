@@ -5,6 +5,9 @@
   the JAX package's), ``reuse_quant``, errors collected without
   ``fail_fast``, ``fail_fast`` raising, a shared quant directory.
 - Each setting whose code comes with a later slice raises, naming it.
+- ``general.save_library`` / ``save_flat_library`` write ``speclib.hdf`` /
+  ``speclib.flat.hdf`` that both packages read equal to each other's; a
+  base or flat HDF library as ``library_path`` gives JAX's flat library.
 - End to end on the 400-peptide, 6-window 3D world of
   ``tests/torch_workflow_worlds.py`` written as mzML and a TSV transition
   list: JAX ``SearchStep.run()`` (its cross-run aggregation left out) and
@@ -140,14 +143,14 @@ def test_shared_quant_directory(tmp_path, light_step, monkeypatch):
 
 
 def test_a_raw_file_that_fails_is_collected(tmp_path, monkeypatch):
-    """A raw file in a format still to come fails on its own; the error
-    names its reader's slice. With no run left, the cross-run outputs find
-    no PSMs (``NoPsmFoundError``, as in the JAX package)."""
+    """A raw file in a format without a reader fails on its own; the error
+    names the formats that read. With no run left, the cross-run outputs
+    find no PSMs (``NoPsmFoundError``, as in the JAX package)."""
     monkeypatch.setattr(SearchStep, "load_library", lambda self: SpecLibFlat({}, {}))
-    s = step(tmp_path, config={"raw_paths": [str(tmp_path / "run.hdf")]})
+    s = step(tmp_path, config={"raw_paths": [str(tmp_path / "run.raw")]})
     with pytest.raises(NoPsmFoundError):
         s.run()
-    assert len(s.errors) == 1 and "HDF5" in s.errors[0][1]
+    assert len(s.errors) == 1 and "Unsupported" in s.errors[0][1] and ".hdf (alphaRaw)" in s.errors[0][1]
 
 
 # ---------------------------------------------------------------------------
@@ -157,9 +160,6 @@ LATER = {
     "profile_directory": ({"general": {"profile_directory": "/tmp/prof"}}, "profiling slice"),
     "transfer_library": ({"transfer_library": {"enabled": True}}, "requant slice"),
     "library_multiplexing": ({"library_multiplexing": {"enabled": True}}, "requant slice"),
-    "save_library": ({"general": {"save_library": True}}, "HDF slice"),
-    "save_flat_library": ({"general": {"save_flat_library": True}}, "HDF slice"),
-    "hdf_library": ({"library_path": "HDF"}, "HDF slice"),
 }
 
 
@@ -173,13 +173,83 @@ def small_inputs(tmp_path_factory):
 def test_later_slices_raise_naming_their_slice(tmp_path, small_inputs, case):
     cfg, slice_name = LATER[case]
     cfg = {"library_path": str(small_inputs[1]), "raw_paths": [str(small_inputs[0])], **cfg}
-    if cfg["library_path"] == "HDF":
-        cfg["library_path"] = str(tmp_path / "lib.hdf")
-        (tmp_path / "lib.hdf").write_bytes(b"")
     s = step(tmp_path, config=cfg)
     with pytest.raises((NotPortedError, ValueError), match=slice_name):
         s.run()
     assert not (tmp_path / QUANT_FOLDER_NAME).exists()
+
+
+def assert_same_frames(jax_frame, port_frame, where=""):
+    """A pandas frame of the JAX package and a column dict of the port:
+    the same names in order, dtypes and values (text as ``str``)."""
+    assert list(jax_frame.columns) == list(port_frame), where
+    for c in jax_frame.columns:
+        a, b = jax_frame[c].to_numpy(), np.asarray(port_frame[c])
+        if a.dtype == object or a.dtype.kind == "U":
+            assert b.dtype == object and [str(x) for x in a] == list(b), (where, c)
+        else:
+            assert a.dtype == b.dtype and np.array_equal(a, b, equal_nan=a.dtype.kind == "f"), (where, c)
+
+
+def assert_same_flat(jax_lib, port_lib, where=""):
+    assert_same_frames(jax_lib.precursor_df, port_lib.precursor_df, f"{where} precursor_df")
+    assert_same_frames(jax_lib.fragment_df, port_lib.fragment_df, f"{where} fragment_df")
+
+
+def assert_same_base(jax_lib, port_lib, where=""):
+    assert_same_frames(jax_lib.precursor_df, port_lib.precursor_df, f"{where} precursor_df")
+    for frame, matrix in ((jax_lib.fragment_mz_df, port_lib.fragment_mz),
+                          (jax_lib.fragment_intensity_df, port_lib.fragment_intensity)):
+        assert list(frame.columns) == port_lib.charged_frag_types, where
+        assert frame.to_numpy().dtype == matrix.dtype and np.array_equal(frame.to_numpy(), matrix), where
+
+
+def _load_library(tmp_path, who, cfg):
+    if who == "jax":
+        return jax_module.SearchStep(str(tmp_path / who), config=cfg).load_library()
+    return step(tmp_path / who, config=cfg).load_library()
+
+
+@pytest.mark.parametrize("key,name", [("save_library", "speclib.hdf"), ("save_flat_library", "speclib.flat.hdf")])
+def test_saved_libraries_are_read_equal_by_both_packages(tmp_path, small_inputs, key, name):
+    """Each package's ``load_library`` with ``general.<key>`` writes
+    ``<name>``; each file is read by both packages, equal to the other's."""
+    from alphadia_torch.library.loader import load_speclib_hdf
+    from alphadia_tpu.library.loader import load_speclib_hdf as jax_load_speclib_hdf
+
+    cfg = {"library_path": str(small_inputs[1]), "general": {key: True}}
+    libs = {who: _load_library(tmp_path, who, cfg) for who in ("jax", "port")}
+    assert_same_flat(libs["jax"], libs["port"], "in memory")
+    check = assert_same_base if key == "save_library" else assert_same_flat
+    for writer in ("jax", "port"):
+        path = tmp_path / writer / name
+        ours, theirs = load_speclib_hdf(path), jax_load_speclib_hdf(path)
+        check(theirs, ours, f"{writer}'s {name}")
+        check(jax_load_speclib_hdf(tmp_path / "jax" / name), ours, f"{writer}'s {name} against JAX's")
+    if key == "save_flat_library":
+        assert_same_flat(jax_load_speclib_hdf(tmp_path / "port" / name), libs["port"], "the port's file")
+
+
+@pytest.mark.parametrize("kind", ["base", "flat_without_decoys"])
+def test_hdf_library_inputs_give_jax_flat_library(tmp_path, small_inputs, kind):
+    """A base library in HDF goes through harmonize, decoys and flattening;
+    a flat one without decoys (the MBR library's form) gets its decoys made
+    anew; either equal to JAX's from the same file."""
+    cfg = {"library_path": str(small_inputs[1]), "general": {"save_library": True, "save_flat_library": True}}
+    _load_library(tmp_path / "make", "jax", cfg)
+    path = tmp_path / "make" / "jax" / "speclib.hdf"
+    if kind == "flat_without_decoys":
+        from alphadia_torch.library.loader import load_speclib_hdf
+        from alphadia_torch.workflow.optimizers.optimization_lock import subset_flat_library
+
+        flat = load_speclib_hdf(tmp_path / "make" / "jax" / "speclib.flat.hdf")
+        targets = subset_flat_library(flat.precursor_df, flat.fragment_df, np.asarray(flat.precursor_df["decoy"]) == 0)
+        path = tmp_path / "targets.flat.hdf"
+        targets.save_hdf(path)
+    cfg = {"library_path": str(path)}
+    libs = {who: _load_library(tmp_path, who, cfg) for who in ("jax", "port")}
+    assert_same_flat(libs["jax"], libs["port"], kind)
+    assert set(np.asarray(libs["port"].precursor_df["decoy"]).tolist()) == {0, 1}
 
 
 def test_several_hosts_raise(tmp_path, light_step, monkeypatch):

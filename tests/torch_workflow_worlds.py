@@ -202,13 +202,15 @@ E2E_OVERRIDES = {
 CLI_WORLD = dict(n_peptides=1500, n_windows=3, n_cycles=600, noise_peaks_per_spectrum=80, seed=5)
 
 
-def write_cli_inputs(tmp, world: dict, runs=E2E_RUNS) -> tuple[list, object, dict, list]:
-    """Runs of one seeded world from sequences as mzML (``run_<i>.mzML``,
-    each run with its acquisition seed, intensity factor and RT shift) and
-    a TSV transition list of the targets with digest-like protein groups
+def write_cli_inputs(tmp, world: dict, runs=E2E_RUNS, raw_format: str = "mzML") -> tuple[list, object, dict, list]:
+    """Runs of one seeded world from sequences as mzML (``run_<i>.mzML``)
+    or, with ``raw_format="hdf"``, alphaRaw HDF (``run_<i>.hdf``), each run
+    with its acquisition seed, intensity factor and RT shift, and a TSV
+    transition list of the targets with digest-like protein groups
     (``assign_proteins``): (raw paths, library path, targets, each run's
     cycle RTs)."""
     from alphadia_torch.rawdata import DiaData
+    from alphadia_torch.testing.alpharaw_writer import save_alpharaw_hdf
     from alphadia_torch.testing.mzml_writer import write_mzml
     from alphadia_torch.testing.synthetic import SyntheticConfig, make_synthetic_dia
     from alphadia_torch.testing.tsv_library import assign_proteins, write_transition_list
@@ -220,8 +222,11 @@ def write_cli_inputs(tmp, world: dict, runs=E2E_RUNS) -> tuple[list, object, dic
         )
         if prec is None:
             prec, frag = p, f
-        path = tmp / f"run_{i}.mzML"
-        write_mzml(path, spectra)
+        path = tmp / f"run_{i}.{raw_format}"
+        if raw_format == "hdf":
+            save_alpharaw_hdf(path, spectra)
+        else:
+            write_mzml(path, spectra)
         raw_paths.append(path)
         cycle_rts.append(DiaData.from_spectra(spectra).cycle_rt)
     prec = dict(prec)
@@ -229,6 +234,23 @@ def write_cli_inputs(tmp, world: dict, runs=E2E_RUNS) -> tuple[list, object, dic
     lib_path = tmp / "library.tsv"
     write_transition_list(lib_path, prec, frag)
     return raw_paths, lib_path, prec, cycle_rts
+
+
+def spectra_sha256(spectra) -> str:
+    """sha256 over a ``SpectrumData``'s decoded arrays (names, dtypes and
+    bytes): input identity that does not depend on a file's compression."""
+    import hashlib
+
+    import numpy as np
+
+    h = hashlib.sha256()
+    for f in ("rt", "ms_level", "isolation_lower_mz", "isolation_upper_mz", "peak_start_idx", "peak_stop_idx", "mz",
+              "intensity", "mobility"):
+        a = getattr(spectra, f)
+        if a is not None:
+            a = np.ascontiguousarray(a)
+            h.update(f.encode() + a.dtype.str.encode() + a.tobytes())
+    return h.hexdigest()
 
 
 def cli_readings(out, truth: dict, cycle_rts: list) -> dict:
