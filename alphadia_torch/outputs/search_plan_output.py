@@ -36,7 +36,7 @@ from pathlib import Path
 import numpy as np
 
 from alphadia_torch.constants.keys import INTERNAL_TO_OUTPUT_MAPPING, QuantLevelKey, QuantLevelName, SearchStepFiles
-from alphadia_torch.exceptions import NoPsmFoundError, NotPortedError, TooFewProteinsError
+from alphadia_torch.exceptions import NoPsmFoundError, TooFewProteinsError
 from alphadia_torch.outputs.df_builders import (
     build_internal_row,
     build_stat_rows,
@@ -53,6 +53,7 @@ from alphadia_torch.outputs.quant import (
     filter_frag_df,
     quantselect_lfq,
 )
+from alphadia_torch.outputs.transfer_library import accumulate_transfer_library
 from alphadia_torch.reporting import PROGRESS
 from alphadia_torch.utils.frame import concat, n_rows, take
 from alphadia_torch.utils.parquet import read_parquet, write_parquet
@@ -115,11 +116,6 @@ class SearchPlanOutput:
         self.timings: dict = {}
 
     def build(self, folder_list: list[str | Path], base_spec_lib=None) -> dict:
-        if self.config["transfer_library"]["enabled"]:
-            raise NotPortedError(
-                "transfer_library.enabled: the transfer library comes with the requant slice of the port "
-                "(ROADMAP queue 1 item 5)"
-            )
         t0 = time.perf_counter()
         psm_df = self._build_precursor_table(folder_list)
         t1 = time.perf_counter()
@@ -131,11 +127,30 @@ class SearchPlanOutput:
         if self.config["general"]["save_mbr_library"] and base_spec_lib is not None:
             self._build_mbr_library(psm_df, base_spec_lib)
         t4 = time.perf_counter()
-        self._write(psm_df, PSM_OUTPUT_NAME)
+        if self.config["transfer_library"]["enabled"]:
+            self._build_transfer_library(folder_list)
         t5 = time.perf_counter()
+        self._write(psm_df, PSM_OUTPUT_NAME)
+        t6 = time.perf_counter()
         self.timings.update(precursor_table_s=t1 - t0, stat_internal_s=t2 - t1, lfq_s=t3 - t2, mbr_s=t4 - t3,
-                            write_precursors_s=t5 - t4, build_s=t5 - t0)
+                            transfer_library_s=t5 - t4, write_precursors_s=t6 - t5, build_s=t6 - t0)
         return psm_df
+
+    def _build_transfer_library(self, folder_list) -> tuple[dict, dict]:
+        """``speclib.transfer.parquet`` and ``speclib.transfer.fragments.parquet``
+        (none where no PSM passes the MS2 QC)."""
+        tl = self.config["transfer_library"]
+        psm, frag = accumulate_transfer_library(
+            folder_list,
+            top_k_samples=tl["top_k_samples"],
+            precursor_correlation_cutoff=tl["precursor_correlation_cutoff"],
+            fragment_correlation_ratio=tl["fragment_correlation_ratio"],
+            norm_delta_max=tl["norm_delta_max"],
+        )
+        if n_rows(psm):
+            write_parquet(psm, self.output_folder / "speclib.transfer.parquet")
+            write_parquet(frag, self.output_folder / "speclib.transfer.fragments.parquet")
+        return psm, frag
 
     def _build_mbr_library(self, psm_df: dict, base_spec_lib) -> None:
         from alphadia_torch.outputs.mbr import MbrLibraryBuilder

@@ -9,9 +9,8 @@ step then searches every run again in the output directory with that flat
 library, from the library step's optimized tolerances
 (``_get_optimized_values_config``: the median over runs of ``stat.tsv``'s
 ``optimization.*``) and ``MBR_EXTRA``. The transfer step
-(``general.transfer_step_enabled``) needs the transfer library and model
-(ROADMAP queue 1 items 5 and 6): it raises ``NotPortedError`` before any
-step runs.
+(``general.transfer_step_enabled``) needs the fine-tuned models (ROADMAP
+queue 1 item 6): it raises ``NotPortedError`` before any step runs.
 """
 
 from __future__ import annotations
@@ -65,8 +64,8 @@ class SearchPlan:
     def run_plan(self) -> None:
         if self.transfer_step_enabled:
             raise NotPortedError(
-                "general.transfer_step_enabled: the transfer step needs the transfer library and model, which come "
-                "with the requant and prediction slices of the port (ROADMAP queue 1 items 5 and 6)"
+                "general.transfer_step_enabled: the transfer step fine-tunes the property models on the transfer "
+                "library, which comes with the transfer-learning slice of the port (ROADMAP queue 1 item 6)"
             )
         if not self.mbr_step_enabled:
             self.run_step(self.output_directory, {})

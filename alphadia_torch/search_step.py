@@ -10,11 +10,17 @@
   (the property models on the step's device), decoys and flattening
   (``load_library``); ``general.save_library`` writes ``speclib.hdf`` after
   the decoys, ``general.save_flat_library`` ``speclib.flat.hdf`` after
-  flattening. A flat HDF library (the MBR step's) only gets its decoys;
+  flattening; with ``library_multiplexing.enabled`` the library is copied
+  to every channel of ``multiplex_mapping`` before the decoys
+  (``MultiplexLibrary``). A flat HDF library (the MBR step's) only gets its
+  decoys;
 - each raw file (``.mzML``, ``.mzML.gz``, ``.hdf``, ``.d``, ``.npz``): ``PeptideCentricWorkflow``
   ``load`` -> ``search_parameter_optimization`` -> ``extraction`` on the
   card (``device=None``) or where ``device`` says, then
-  ``quant/<run>/psm.parquet`` and ``frag.parquet``; ``reuse_quant`` skips a
+  ``quant/<run>/psm.parquet`` and ``frag.parquet``; with
+  ``transfer_library.enabled`` the PSMs quantified again over their whole
+  fragment space (``requantify_fragments``) as ``frag.transfer.parquet``
+  (the scored set where that finds fewer fragments); ``reuse_quant`` skips a
   run whose ``psm.parquet`` exists, errors are collected per run unless
   ``general.fail_fast``.
 
@@ -24,7 +30,10 @@ their FDR, ``stat.tsv``, ``internal.tsv``, the LFQ matrices), on the host;
 under ``general.fail_fast`` a failed raw file's error is raised before it.
 Settings whose code comes with a later slice raise ``NotPortedError``
 naming it, before any work: several hosts, ``general.profile_directory``,
-``transfer_library.enabled``, ``library_multiplexing.enabled``.
+``transfer_learning.enabled`` (with ``transfer_library.enabled``). The
+multiplexing requant (``PeptideCentricWorkflow.requantify``) has no caller
+here, as in the JAX package: a multiplexed search is the channel library
+searched by the normal path.
 """
 
 from __future__ import annotations
@@ -45,12 +54,14 @@ from alphadia_torch.library.digest import digest_fasta
 from alphadia_torch.library.flatten import FlattenLibrary, InitFlatColumns, LogFlatLibraryStats
 from alphadia_torch.library.harmonize import AnnotateFasta, IsotopeGenerator, PrecursorInitializer, RTNormalization
 from alphadia_torch.library.loader import DynamicLoader
+from alphadia_torch.library.multiplex import MultiplexLibrary
 from alphadia_torch.library.pipeline import ProcessingPipeline
 from alphadia_torch.library.speclib import SpecLibFlat
 from alphadia_torch.models.prediction import SimplePrediction
 from alphadia_torch.outputs.search_plan_output import SearchPlanOutput
 from alphadia_torch.reporting import PROGRESS, init_logging
 from alphadia_torch.utils.device import resolve_device
+from alphadia_torch.utils.frame import n_rows
 from alphadia_torch.utils.parquet import write_parquet
 from alphadia_torch.workflow.base import QUANT_FOLDER_NAME
 from alphadia_torch.workflow.peptidecentric.peptidecentric import PeptideCentricWorkflow
@@ -108,10 +119,10 @@ class SearchStep:
                 "general.profile_directory: the per-file profiler trace comes with the profiling slice of the port "
                 "(ROADMAP queue 1 item 8)"
             )
-        if self.config["transfer_library"]["enabled"]:
+        if self.config["transfer_library"]["enabled"] and self.config["transfer_learning"]["enabled"]:
             raise NotPortedError(
-                "transfer_library.enabled: the transfer requantification comes with the requant slice of the port "
-                "(ROADMAP queue 1 item 5)"
+                "transfer_learning.enabled: fine-tuning the property models on the transfer library comes with the "
+                "transfer-learning slice of the port (ROADMAP queue 1 item 6)"
             )
 
     def load_library(self) -> SpecLibFlat:
@@ -124,11 +135,6 @@ class SearchStep:
         fasta_paths = list(self.config["fasta_paths"] or [])
         predict = self.config["library_prediction"]["enabled"]
         threads = self.config["general"]["thread_count"]
-        if self.config["library_multiplexing"]["enabled"]:
-            raise NotPortedError(
-                "library_multiplexing.enabled: the multiplexed library and its requant come with the requant slice "
-                "of the port (ROADMAP queue 1 item 5)"
-            )
         if lib_path:
             lib = DynamicLoader()(lib_path)
         elif fasta_paths and predict:
@@ -172,6 +178,9 @@ class SearchStep:
                 )
             )
         lib = ProcessingPipeline(steps + [IsotopeGenerator(), RTNormalization()])(lib)
+        if self.config["library_multiplexing"]["enabled"]:
+            lm = self.config["library_multiplexing"]
+            lib = MultiplexLibrary(lm["multiplex_mapping"], lm["input_channel"])(lib)
 
         lib = DecoyGenerator("diann")(lib)
         if self.config["general"]["save_library"]:
@@ -222,7 +231,22 @@ class SearchStep:
         workflow.load(raw_path, self.spectral_library.copy())
         workflow.search_parameter_optimization()
         psm_df, frag_df = workflow.extraction()
+        frag_transfer_df = None
+        if self.config["transfer_library"]["enabled"]:
+            # an error here is the run's error, as one in extraction() is:
+            # nothing of the run is written
+            _, frag_transfer_df = workflow.requantify_fragments(psm_df)
+            if n_rows(frag_transfer_df) < n_rows(frag_df):
+                # the sequence-derived fragment space did not meet the data
+                # (a library whose fragment m/z do not follow its sequences)
+                logger.warning(
+                    "transfer requantification matched fewer fragments (%d) than the scored set (%d); keeping the "
+                    "scored set", n_rows(frag_transfer_df), n_rows(frag_df),
+                )
+                frag_transfer_df = frag_df
         write_parquet(psm_df, workflow.path / SearchStepFiles.PSM_FILE_NAME)
         write_parquet(frag_df, workflow.path / SearchStepFiles.FRAG_FILE_NAME)
+        if frag_transfer_df is not None:
+            write_parquet(frag_transfer_df, workflow.path / SearchStepFiles.FRAG_TRANSFER_FILE_NAME)
         workflow.dia_data.free_device()
 

@@ -4,11 +4,11 @@
 run's library), ``search_parameter_optimization`` (the calibration and
 tolerance loop, then the final calibration applied to the whole library),
 ``extraction`` (the whole library at the optimized tolerances, PSMs at the
-configured FDR). The device (``None``: the card) is handed down to the
-drivers and the FDR manager.
-
-The requant hooks of the JAX package (multiplexing, transfer library) come
-with the slices that port their handlers.
+configured FDR), and the two requants after it: ``requantify`` (the
+multiplexing handler: the confident PSMs in every channel, channel FDR)
+and ``requantify_fragments`` (the transfer requant over the whole fragment
+space). The device (``None``: the card) is handed down to the drivers and
+the FDR manager.
 """
 
 from __future__ import annotations
@@ -29,7 +29,9 @@ from alphadia_torch.workflow.managers.timing_manager import use_timing_manager
 from alphadia_torch.workflow.peptidecentric.column_name_handler import ColumnNameHandler
 from alphadia_torch.workflow.peptidecentric.extraction_handler import ExtractionHandler
 from alphadia_torch.workflow.peptidecentric.library_init import init_spectral_library
+from alphadia_torch.workflow.peptidecentric.multiplexing_handler import MultiplexingHandler
 from alphadia_torch.workflow.peptidecentric.optimization_handler import OptimizationHandler
+from alphadia_torch.workflow.peptidecentric.transfer_requant_handler import TransferRequantHandler
 
 logger = logging.getLogger(__name__)
 
@@ -108,12 +110,8 @@ class PeptideCentricWorkflow(WorkflowBase):
         self.calibration_manager.save()
         self.optimization_manager.save()
 
-    @use_timing_manager("extraction")
-    def extraction(self) -> tuple[dict, dict]:
-        """The whole library at the optimized parameters: (PSMs at the
-        configured FDR, the fragments of the PSMs that survive)."""
-        self.optimization_manager.update(num_candidates=self.config["search"]["target_num_candidates"])
-        handler = ExtractionHandler.create_handler(
+    def _extraction_handler(self) -> ExtractionHandler:
+        return ExtractionHandler.create_handler(
             self.config,
             self.optimization_manager,
             ColumnNameHandler(
@@ -123,6 +121,13 @@ class PeptideCentricWorkflow(WorkflowBase):
             ),
             device=self.device,
         )
+
+    @use_timing_manager("extraction")
+    def extraction(self) -> tuple[dict, dict]:
+        """The whole library at the optimized parameters: (PSMs at the
+        configured FDR, the fragments of the PSMs that survive)."""
+        self.optimization_manager.update(num_candidates=self.config["search"]["target_num_candidates"])
+        handler = self._extraction_handler()
         candidates = handler.select_candidates(self.dia_data, self.spectral_library, apply_cutoff=True)
         features, fragments = handler.score_and_quantify_candidates(candidates, self.dia_data, self.spectral_library)
         if n_rows(features) == 0:
@@ -152,3 +157,19 @@ class PeptideCentricWorkflow(WorkflowBase):
         self.reporter.log_metric("extraction.fragments", n_rows(fragments))
         self.timing_manager.save()
         return psm, fragments
+
+    @use_timing_manager("requantify")
+    def requantify(self, psm_df: dict) -> tuple[dict, dict]:
+        """Multiplexing: the confident PSMs carried to every channel of
+        their elution group, rescored, with channel q-values."""
+        return MultiplexingHandler(
+            self.config, self.fdr_manager, self._extraction_handler(), self.calibration_manager
+        ).requantify(self.dia_data, self.spectral_library, psm_df)
+
+    @use_timing_manager("requantify_fragments")
+    def requantify_fragments(self, psm_df: dict) -> tuple[dict, dict]:
+        """The confident PSMs quantified over the whole transfer fragment
+        space."""
+        return TransferRequantHandler(
+            self.config, self.calibration_manager, self.optimization_manager, device=self.device
+        ).requantify(self.dia_data, psm_df)

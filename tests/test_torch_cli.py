@@ -110,10 +110,10 @@ def test_config_file_directory_scan_and_aliases(tmp_path, on_cpu, monkeypatch):
 
 
 REFUSALS = {
-    "transfer_step": (["--config-dict", json.dumps({"general": {"transfer_step_enabled": True}})], "items 5 and 6"),
+    "transfer_step": (["--config-dict", json.dumps({"general": {"transfer_step_enabled": True}})], "item 6"),
     "transfer_and_mbr_steps": (
         ["--config-dict", json.dumps({"general": {"transfer_step_enabled": True, "mbr_step_enabled": True}})],
-        "items 5 and 6",
+        "item 6",
     ),
     "profile_dir": (["--profile-dir", "prof"], "item 8"),
 }

@@ -373,3 +373,38 @@ def test_the_committed_fixture_reads_with_its_sha256(tmp_path):
         assert file_record(tmp_path / name) == want, name
         assert file_record(tmp_path / name, reader="h5py") == want, name
     same_spectra(read_alpharaw_hdf(DATA / "hdf_spectra_3d.hdf"), read_alpharaw_hdf(DATA / "hdf_alpharaw.hdf"))
+
+
+@pytest.mark.parametrize("libver", ["latest", "v108_latest", "track_order"])
+def test_new_style_files_read_as_jax(tmp_path, spectra, libver):
+    """A spectra file and a base library written by h5py with ``libver=
+    "latest"``, ``("v108", "latest")`` or ``track_order=True`` (the JAX
+    writers under h5py's global ``track_order``): both packages' readers
+    give the same arrays and frames."""
+    prec, _, mz, inten, types = _frames()
+    kw = {"latest": dict(libver="latest"), "v108_latest": dict(libver=("v108", "latest")),
+          "track_order": dict(track_order=True)}[libver]
+    original = h5py.File
+
+    def file_with(path, mode="r", **k):
+        return original(path, mode, **({**kw, **k} if mode == "w" else k))
+
+    h5py.get_config().track_order = libver == "track_order"
+    try:
+        h5py.File = file_with
+        jax_hdf.save_spectra_hdf(tmp_path / "run.hdf", spectra)
+        jax_speclib.SpecLibBase(pd.DataFrame(prec), pd.DataFrame(mz, columns=types),
+                                pd.DataFrame(inten, columns=types)).save_hdf(tmp_path / "lib.hdf")
+    finally:
+        h5py.File = original
+        h5py.get_config().track_order = False
+    for name in ("run.hdf", "lib.hdf"):
+        with h5py.File(tmp_path / name) as f:
+            if libver == "track_order":
+                assert f["/"].id.get_create_plist().get_link_creation_order()
+            else:
+                assert (tmp_path / name).read_bytes()[8] in (2, 3)  # the superblock's version
+    same_spectra(jax_hdf.read_alpharaw_hdf(tmp_path / "run.hdf"), read_alpharaw_hdf(tmp_path / "run.hdf"))
+    ours, theirs = load_speclib_hdf(tmp_path / "lib.hdf"), jax_loader.load_speclib_hdf(tmp_path / "lib.hdf")
+    assert_frame(theirs.precursor_df, ours.precursor_df, prec)
+    assert ours.fragment_mz.tobytes() == theirs.fragment_mz_df.to_numpy().tobytes()

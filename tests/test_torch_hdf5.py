@@ -9,11 +9,19 @@ against h5py, on the CPU.
 - h5py reads what the port writes bit for bit (also on several threads,
   whose count does not change a byte); the port's file of a library frame
   is at most 1.5 times h5py's at gzip level 1.
+- The port reads what h5py writes with ``libver="latest"``,
+  ``libver=("v108", "latest")`` and ``track_order=True`` bit for bit:
+  compact and dense groups (9 and 200 links), 20 attributes, every chunk
+  index of the version-4 layout (single chunk, implicit, fixed array with
+  pages, extensible array with secondary blocks and paged data blocks,
+  version-2 B-tree with internal nodes) under no filter, gzip+shuffle, LZF
+  and fletcher32, variable-length strings; each file holds the structures
+  it is meant to test.
 - Structures outside the subset raise ``ValueError`` naming themselves
-  (``libver="latest"``, new-style groups, dense attributes, big-endian and
-  compound types, other filters, soft links, version-2 object headers).
-- Truncated and corrupted files raise ``ValueError``; a fletcher32 mismatch
-  raises.
+  (big-endian and compound types, other filters, soft links in either kind
+  of group, external links, shared messages, variable-length sequences).
+- Truncated and corrupted files, ``latest`` ones too, raise ``ValueError``;
+  a fletcher32 or lookup3 checksum mismatch raises.
 """
 
 import os
@@ -293,11 +301,138 @@ def test_the_writer_is_at_most_1p5_times_h5py(tmp_path):
 # ---------------------------------------------------------------------------
 # outside the subset, corrupt files
 # ---------------------------------------------------------------------------
+# ---------------------------------------------------------------------------
+# libver="latest", ("v108", "latest") and track_order=True
+# ---------------------------------------------------------------------------
+NEW_STYLE = {
+    "latest": dict(libver="latest"),
+    "v108_latest": dict(libver=("v108", "latest")),
+    "track_order": dict(track_order=True),
+}
+NEW_FILTERS = {
+    "none": {},
+    "gzip_shuffle": dict(compression="gzip", shuffle=True),
+    "lzf": dict(compression="lzf"),
+    "fletcher32": dict(fletcher32=True),
+}
+
+
+def _census(path) -> dict:
+    raw = path.read_bytes()
+    return {sig: raw.count(sig.encode()) for sig in ("OHDR", "OCHK", "FRHP", "FHIB", "BTHD", "BTIN", "FAHD", "EASB", "TREE")}
+
+
+def _implicit(group, name, data, chunk):
+    """A chunked dataset of early allocation (the implicit chunk index)."""
+    dcpl = h5py.h5p.create(h5py.h5p.DATASET_CREATE)
+    dcpl.set_chunk((chunk,))
+    dcpl.set_alloc_time(h5py.h5d.ALLOC_TIME_EARLY)
+    space = h5py.h5s.create_simple(data.shape)
+    h5py.h5d.create(group.id, name.encode(), h5py.h5t.py_create(data.dtype), space, dcpl=dcpl).write(
+        h5py.h5s.ALL, h5py.h5s.ALL, data
+    )
+
+
+@pytest.mark.parametrize("style", sorted(NEW_STYLE))
+def test_port_reads_new_style_groups_and_dense_attributes_as_h5py(tmp_path, style):
+    path = tmp_path / "groups.h5"
+    track = NEW_STYLE[style].get("track_order", False)
+    with h5py.File(path, "w", **NEW_STYLE[style]) as f:
+        for i in range(20):
+            f.attrs[f"a{i:02d}"] = np.arange(i + 1, dtype=np.int32)
+        f.attrs["format"] = "alphadia_tpu_speclib_flat"
+        f.attrs["columns"] = ["mz", "intensity", "ä"]
+        compact = f.create_group("compact", track_order=track)
+        for i in range(9):
+            compact.create_dataset(f"d{i}", data=np.arange(i + 1, dtype=np.float32))
+        dense = f.create_group("dense", track_order=track)
+        for i in (RNG.permutation(200) if track else range(200)):
+            d = dense.create_dataset(f"n{i:03d}_{'x' * (i % 17)}", data=np.array([i, -i], dtype=np.int64))
+            if i % 50 == 0:
+                for k in range(12):
+                    d.attrs[f"k{k}"] = f"value {k}"
+    got = _port_reads_like_h5py(path)
+    assert len([k for k in got if k.startswith("dense/")]) == 200
+    census = _census(path)
+    if style != "v108_latest":
+        assert census["FRHP"] > 0 and census["BTHD"] > 0 and census["BTIN"] > 0, census  # dense links, deep index
+    with hdf5.File(path) as f:
+        assert list(f["dense"]) == sorted(f["dense"], key=lambda k: k.encode())  # h5py's name order
+
+
+@pytest.mark.parametrize("style", sorted(NEW_STYLE))
+def test_port_reads_every_dtype_in_new_style_files_as_h5py(tmp_path, style):
+    """Every dtype of the subset (h5py's ``bool`` enum takes datatype
+    version 4 under ``latest``), chunked under gzip and contiguous."""
+    path = tmp_path / "dtypes.h5"
+    with h5py.File(path, "w", **NEW_STYLE[style]) as f:
+        for kind in DTYPES:
+            f.create_dataset(kind, **_h5py_data(_column(kind, 700)), compression="gzip")
+            f.create_dataset(f"{kind}_contiguous", **_h5py_data(_column(kind, 50)))
+            f.attrs[kind] = _column(kind, 3)
+    got = _port_reads_like_h5py(path)
+    assert got["bool"].dtype == bool and got["vlen"].dtype == object
+
+
+@pytest.mark.parametrize("filters", sorted(NEW_FILTERS))
+@pytest.mark.parametrize("style", sorted(NEW_STYLE))
+def test_port_reads_every_chunk_index_as_h5py(tmp_path, style, filters):
+    path = tmp_path / "chunks.h5"
+    opts = NEW_FILTERS[filters]
+    with h5py.File(path, "w", **NEW_STYLE[style]) as f:
+        x = RNG.normal(size=3000).astype(np.float32)
+        f.create_dataset("single", data=x, chunks=(3000,), **opts)
+        f.create_dataset("single_edge", data=x[:2999], chunks=(3000,), maxshape=(3000,), **opts)
+        if not opts:
+            _implicit(f, "implicit", x, 128)
+        f.create_dataset("fixed_paged", data=RNG.integers(-9, 9, 2100).astype(np.int16), chunks=(2,), **opts)
+        f.create_dataset("fixed_2d", data=RNG.normal(size=(40, 30)), chunks=(7, 4), **opts)
+        f.create_dataset("fixed_spare", data=np.arange(50, dtype=np.uint8), chunks=(8,), maxshape=(100,), **opts)
+        f.create_dataset("extensible", data=np.arange(5000, dtype=np.int32), chunks=(4,), maxshape=(None,), **opts)
+        f.create_dataset("extensible_2d", data=RNG.normal(size=(300, 6)).astype(np.float32), chunks=(8, 3),
+                         maxshape=(None, 6), **opts)
+        f.create_dataset("btree2", data=RNG.normal(size=(100, 90)), chunks=(5, 5), maxshape=(None, None), **opts)
+        if "shuffle" not in opts and "fletcher32" not in opts:  # HDF5 refuses these on variable-length data
+            f.create_dataset("vlen", data=_column("vlen", 700), dtype=h5py.string_dtype(), chunks=(64,), **opts)
+        grow = f.create_dataset("grown", shape=(0,), dtype=np.float64, chunks=(16,), maxshape=(None,), **opts)
+        grow.resize((1000,))
+        grow[::7] = np.arange(143)
+    _port_reads_like_h5py(path)
+    census = _census(path)
+    if style == "latest":
+        assert census["FAHD"] > 0 and census["EASB"] > 0 and census["BTIN"] > 0 and census["TREE"] == 0, census
+    else:
+        assert census["TREE"] > 0, census  # layout 3: the version-1 B-tree chunk index
+
+
+def test_port_reads_paged_extensible_array_data_blocks_as_h5py(tmp_path):
+    """Past 131,072 chunks a super block's data blocks hold more than a page
+    (1,024 elements): paged, with a page bitmap in the super block."""
+    path = tmp_path / "paged.h5"
+    with h5py.File(path, "w", libver="latest") as f:
+        d = f.create_dataset("x", shape=(140_000,), dtype=np.uint8, chunks=(1,), maxshape=(None,))
+        d[:] = np.arange(140_000) % 251
+        sparse = f.create_dataset("sparse", shape=(140_000,), dtype=np.int16, chunks=(1,), maxshape=(None,),
+                                  fillvalue=-3)
+        sparse[139_000:139_010] = 7  # pages of a paged block left unwritten
+    _port_reads_like_h5py(path)
+
+
 def _write_outside(path, case):
-    if case == "libver_latest":
+    if case == "soft_link_new_style":
         with h5py.File(path, "w", libver="latest") as f:
-            f.create_dataset("x", data=np.arange(3))
-        return "superblock version"
+            f.create_dataset("y", data=[1])
+            f["x"] = h5py.SoftLink("/y")
+        return "soft link"
+    if case == "external_link":
+        with h5py.File(path, "w", libver="latest") as f:
+            f["x"] = h5py.ExternalLink("other.h5", "/y")
+        return "external"
+    if case == "shared_datatype":
+        with h5py.File(path, "w", libver="latest") as f:
+            f["z_type"] = np.dtype("<f4")  # committed; "x" comes first in name order
+            f.create_dataset("x", data=np.arange(3, dtype=np.float32), dtype=f["z_type"])
+        return "shared"
     with h5py.File(path, "w") as f:
         if case == "big_endian_int":
             f.create_dataset("x", data=np.arange(5, dtype=">i4"))
@@ -311,9 +446,6 @@ def _write_outside(path, case):
         if case == "scaleoffset":
             f.create_dataset("x", data=np.arange(100, dtype=np.int32), scaleoffset=0)
             return "scaleoffset"
-        if case == "tracked_order_group":
-            f.create_group("x", track_order=True).create_dataset("y", data=[1])
-            return "version-2 object header|link info message"
         if case == "soft_link":
             f.create_dataset("y", data=[1])
             f["x"] = h5py.SoftLink("/y")
@@ -324,8 +456,8 @@ def _write_outside(path, case):
     raise KeyError(case)
 
 
-OUTSIDE = ("libver_latest", "big_endian_int", "big_endian_float", "compound", "scaleoffset", "tracked_order_group",
-           "soft_link", "vlen_sequence")
+OUTSIDE = ("big_endian_int", "big_endian_float", "compound", "scaleoffset", "soft_link", "vlen_sequence",
+           "soft_link_new_style", "external_link", "shared_datatype")
 
 
 @pytest.mark.parametrize("case", OUTSIDE)
@@ -334,16 +466,6 @@ def test_outside_the_subset_raises_naming_it(tmp_path, case):
     what = _write_outside(path, case)
     with pytest.raises(ValueError, match=what):
         _read(path)
-
-
-def test_a_version_2_object_header_raises_naming_it(tmp_path):
-    path = tmp_path / "v2.h5"
-    with h5py.File(path, "w", libver=("v108", "latest")) as f:
-        f.create_dataset("x", data=np.arange(3))
-    raw = path.read_bytes()
-    src = hdf5._Source(raw, "v2.h5")
-    with pytest.raises(ValueError, match=r"version-2 object header \(OHDR\)"):
-        hdf5._Reader(src).messages(raw.index(b"OHDR"))
 
 
 @pytest.fixture(scope="module")
@@ -369,6 +491,8 @@ def _read_all(path):
                 node[()]
             else:
                 dict(node.attrs)
+                for j in node:
+                    node[j]
 
 
 @pytest.mark.parametrize("cut", [0, 7, 60, 96, 300, 0.25, 0.5, 0.9, -1])
@@ -395,6 +519,67 @@ def test_flipped_bytes_raise_value_error_or_read(tmp_path, sample):
         except ValueError:
             raised += 1
     assert raised > 0
+
+
+@pytest.fixture(scope="module")
+def latest_sample(tmp_path_factory):
+    path = tmp_path_factory.mktemp("corrupt") / "latest.h5"
+    with h5py.File(path, "w", libver="latest") as f:
+        for i in range(12):
+            f.attrs[f"a{i}"] = i
+        f.create_dataset("mz", data=RNG.normal(size=3000).astype(np.float32), compression="gzip", shuffle=True,
+                         chunks=(2,))
+        f.create_dataset("ext", data=np.arange(400, dtype=np.int32), chunks=(4,), maxshape=(None,), fletcher32=True)
+        f.create_dataset("bt", data=np.arange(600.0).reshape(30, 20), chunks=(3, 4), maxshape=(None, None))
+        g = f.create_group("g")
+        for i in range(40):
+            g.create_dataset(f"d{i}", data=[i])
+        g.attrs["columns"] = ["a", "b"]
+    return path.read_bytes()
+
+
+@pytest.mark.parametrize("cut", [0, 7, 40, 60, 300, 0.25, 0.5, 0.9, -1])
+def test_truncated_latest_files_raise(tmp_path, latest_sample, cut):
+    sample = latest_sample
+    n = cut if isinstance(cut, int) and cut >= 0 else int(len(sample) * cut) if cut > 0 else len(sample) - 1
+    path = tmp_path / "t.h5"
+    path.write_bytes(sample[:n])
+    with pytest.raises(ValueError):
+        _read_all(path)
+
+
+def test_flipped_bytes_of_a_latest_file_raise_value_error_or_read(tmp_path, latest_sample):
+    rng = np.random.default_rng(8)
+    path = tmp_path / "c.h5"
+    raised = 0
+    for pos in rng.integers(0, len(latest_sample), 300):
+        bad = bytearray(latest_sample)
+        bad[pos] ^= int(rng.integers(1, 256))
+        path.write_bytes(bytes(bad))
+        try:
+            _read_all(path)
+        except ValueError:
+            raised += 1
+    assert raised > 0
+
+
+@pytest.mark.parametrize("sig", ["OHDR", "FRHP", "FHDB", "BTHD", "BTLF", "FAHD", "EAHD", "EAIB"])
+def test_a_checksum_mismatch_in_latest_metadata_raises(tmp_path, latest_sample, sig):
+    """One byte flipped inside a checksummed block (past its signature):
+    the lookup3 checksum names the block."""
+    at = latest_sample.index(sig.encode())
+    bad = bytearray(latest_sample)
+    bad[at + 5] ^= 0x01
+    (tmp_path / "bad.h5").write_bytes(bytes(bad))
+    with pytest.raises(ValueError, match="checksum mismatch|no .* at address|version"):
+        _read_all(tmp_path / "bad.h5")
+
+
+def test_lookup3_against_its_published_values():
+    assert hdf5.lookup3(b"") == 0xDEADBEEF
+    assert hdf5.lookup3(b"Four score and seven years ago") == 0x17770551
+    for n in (1, 11, 12, 13, 24, 25):
+        assert hdf5.lookup3(bytes(n)) != hdf5.lookup3(bytes(n + 1))
 
 
 def test_a_fletcher32_mismatch_raises(tmp_path, sample):

@@ -111,6 +111,11 @@ import alphadia_torch.testing.tdf_writer
 import alphadia_torch.utils.hdf5
 import alphadia_torch.rawdata.hdf
 import alphadia_torch.testing.alpharaw_writer
+import alphadia_torch.testing.physics
+import alphadia_torch.library.multiplex
+import alphadia_torch.outputs.transfer_library
+import alphadia_torch.workflow.peptidecentric.multiplexing_handler
+import alphadia_torch.workflow.peptidecentric.transfer_requant_handler
 cfg = alphadia_torch.config.load_default_config()
 assert cfg["tpu"]["gather_slab"] == 256
 import tempfile
@@ -129,6 +134,8 @@ with tempfile.TemporaryDirectory() as d:
     flat.save_hdf(Path(d) / "lib.hdf")
     back = alphadia_torch.library.loader.DynamicLoader()(Path(d) / "lib.hdf")
     assert list(back.precursor_df["sequence"]) == ["PEPTIDE"] and back.fragment_df["mz"].tolist() == [1.0, 1.0, 1.0]
+    data = Path(alphadia_torch.__file__).parent / "testing" / "data"
+    assert len(load_raw_file(data / "hdf_alpharaw_latest.hdf").mz) > 1024  # h5py's libver="latest"
 loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not loaded, loaded
 print("ok")

@@ -97,8 +97,8 @@ def test_mbr_plan_runs_the_library_and_mbr_steps_as_jax(tmp_path, monkeypatch, c
 
 
 LATER = {
-    "transfer": ({"general": {"transfer_step_enabled": True}}, {}, "items 5 and 6"),
-    "both": ({"general": {"transfer_step_enabled": True, "mbr_step_enabled": True}}, {}, "items 5 and 6"),
+    "transfer": ({"general": {"transfer_step_enabled": True}}, {}, "item 6"),
+    "both": ({"general": {"transfer_step_enabled": True, "mbr_step_enabled": True}}, {}, "item 6"),
 }
 
 

@@ -158,8 +158,8 @@ def test_a_raw_file_that_fails_is_collected(tmp_path, monkeypatch):
 # ---------------------------------------------------------------------------
 LATER = {
     "profile_directory": ({"general": {"profile_directory": "/tmp/prof"}}, "profiling slice"),
-    "transfer_library": ({"transfer_library": {"enabled": True}}, "requant slice"),
-    "library_multiplexing": ({"library_multiplexing": {"enabled": True}}, "requant slice"),
+    "transfer_library": ({"transfer_library": {"enabled": True}, "transfer_learning": {"enabled": True}},
+                         "transfer-learning slice"),
 }
 
 

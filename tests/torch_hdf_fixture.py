@@ -14,6 +14,14 @@ writers where it has them.
   ``ms_data/{spectrum_df,peak_df}``, RT in minutes with the vlen attribute
   ``rt_unit``, a vlen-string column, ``mz`` under shuffle+deflate and
   ``intensity`` under LZF;
+- ``hdf_alpharaw_latest.hdf``: a smaller 3D world in alphaRaw's layout with
+  ``libver="latest"`` (version-3 superblock, version-2 object headers,
+  dense attributes, the fixed-array chunk index with data-block pages
+  (``mz`` in chunks of two peaks), the extensible-array one with secondary
+  blocks for ``maxshape=(None,)`` columns);
+- ``hdf_speclib_track_order.hdf``: ``SpecLibBase.save_hdf`` of the 3D
+  world's TSV library with h5py's ``track_order`` on (groups with link
+  creation order: dense links in a fractal heap, version-2 B-trees);
 - ``hdf_fixture.json``: the worlds, and per file the sha256 of every
   dataset (``array_sha256`` of h5py's reading, variable-length strings as
   ``str``) and every attribute's value.
@@ -35,7 +43,9 @@ import numpy as np
 DATA = Path(__file__).resolve().parents[1] / "alphadia_torch" / "testing" / "data"
 WORLD_3D = dict(n_peptides=120, n_windows=3, n_cycles=60, noise_peaks_per_spectrum=20, seed=5, from_sequence=True)
 WORLD_4D = dict(n_peptides=40, n_windows=2, n_cycles=30, noise_peaks_per_spectrum=10, seed=6, with_mobility=True)
-FILES = ("hdf_spectra_3d.hdf", "hdf_spectra_4d.hdf", "hdf_speclib_base.hdf", "hdf_speclib_flat.hdf", "hdf_alpharaw.hdf")
+WORLD_LATEST = dict(n_peptides=20, n_windows=3, n_cycles=12, noise_peaks_per_spectrum=5, seed=7)
+FILES = ("hdf_spectra_3d.hdf", "hdf_spectra_4d.hdf", "hdf_speclib_base.hdf", "hdf_speclib_flat.hdf", "hdf_alpharaw.hdf",
+         "hdf_alpharaw_latest.hdf", "hdf_speclib_track_order.hdf")
 
 
 def array_sha256(a) -> str:
@@ -140,29 +150,56 @@ def main():
     flat.fragment_df["is_top"] = pd.Series(flat.fragment_df["intensity"].to_numpy() >= 0.5)
     flat.save_hdf(DATA / "hdf_speclib_flat.hdf")
 
-    with h5py.File(DATA / "hdf_alpharaw.hdf", "w") as f:
-        g = f.create_group("ms_data")
-        spec, peak = g.create_group("spectrum_df"), g.create_group("peak_df")
-        spec.attrs["rt_unit"] = "minute"
-        spec.create_dataset("rt", data=spectra.rt.astype(np.float64) / 60.0, compression="gzip")
-        spec.create_dataset("ms_level", data=spectra.ms_level.astype(np.int8), compression="gzip")
-        spec.create_dataset("isolation_lower_mz", data=spectra.isolation_lower_mz.astype(np.float64), compression="gzip")
-        spec.create_dataset("isolation_upper_mz", data=spectra.isolation_upper_mz.astype(np.float64), compression="gzip")
-        spec.create_dataset("peak_start_idx", data=spectra.peak_start_idx, compression="gzip")
-        spec.create_dataset("peak_stop_idx", data=spectra.peak_stop_idx, compression="gzip")
-        spec.create_dataset("scan_id", data=np.array([f"controllerType=0 scan={i + 1}" for i in range(spectra.n_spectra)],
-                                                     dtype=object), dtype=h5py.string_dtype(), compression="gzip")
-        peak.create_dataset("mz", data=spectra.mz.astype(np.float64), compression="gzip", shuffle=True)
-        peak.create_dataset("intensity", data=spectra.intensity, compression="lzf")
+    write_alpharaw(DATA / "hdf_alpharaw.hdf", spectra)
+    spectra_latest, _, _ = make_synthetic_dia(SyntheticConfig(**WORLD_LATEST))
+    write_alpharaw(DATA / "hdf_alpharaw_latest.hdf", spectra_latest, libver="latest", chunks={"mz": 2, "intensity": 4},
+                   unlimited=("peak_start_idx", "peak_stop_idx", "intensity"),
+                   attrs={f"creation_info_{i}": i for i in range(10)})
+    h5py.get_config().track_order = True
+    try:
+        base.save_hdf(DATA / "hdf_speclib_track_order.hdf")
+    finally:
+        h5py.get_config().track_order = False
 
     record = {
-        "world_3d": WORLD_3D, "world_4d": WORLD_4D, "h5py": h5py.__version__, "hdf5": h5py.version.hdf5_version,
-        "files": {name: file_record(DATA / name, reader="h5py") for name in FILES},
+        "world_3d": WORLD_3D, "world_4d": WORLD_4D, "world_latest": WORLD_LATEST, "h5py": h5py.__version__,
+        "hdf5": h5py.version.hdf5_version, "files": {name: file_record(DATA / name, reader="h5py") for name in FILES},
     }
     (DATA / "hdf_fixture.json").write_text(json.dumps(record, indent=1) + "\n")
     sizes = {name: (DATA / name).stat().st_size for name in FILES}
     print(f"{len(spectra.mz)} / {len(spectra_4d.mz)} peaks, {len(flat.precursor_df)} flat precursors; bytes {sizes}, "
           f"{sum(sizes.values())} in all")
+
+
+def write_alpharaw(path, spectra, libver=None, chunks=None, unlimited=(), attrs=None) -> None:
+    """``spectra`` in alphaRaw's layout through h5py; ``chunks`` the chunk
+    length of some columns (more than 1,024 chunks: a paged fixed array),
+    ``unlimited`` the columns of ``maxshape=(None,)``."""
+    import h5py
+
+    def column(g, name, data, **kw):
+        opts = dict(kw)
+        if name in (chunks or {}):
+            opts["chunks"] = (chunks[name],)
+        if name in unlimited:
+            opts["maxshape"] = (None,)
+        g.create_dataset(name, data=data, **opts)
+
+    with h5py.File(path, "w", **({"libver": libver} if libver else {})) as f:
+        f.attrs.update(attrs or {})
+        g = f.create_group("ms_data")
+        spec, peak = g.create_group("spectrum_df"), g.create_group("peak_df")
+        spec.attrs["rt_unit"] = "minute"
+        column(spec, "rt", spectra.rt.astype(np.float64) / 60.0, compression="gzip")
+        column(spec, "ms_level", spectra.ms_level.astype(np.int8), compression="gzip")
+        column(spec, "isolation_lower_mz", spectra.isolation_lower_mz.astype(np.float64), compression="gzip")
+        column(spec, "isolation_upper_mz", spectra.isolation_upper_mz.astype(np.float64), compression="gzip")
+        column(spec, "peak_start_idx", spectra.peak_start_idx, compression="gzip")
+        column(spec, "peak_stop_idx", spectra.peak_stop_idx, compression="gzip")
+        column(spec, "scan_id", np.array([f"controllerType=0 scan={i + 1}" for i in range(spectra.n_spectra)],
+                                         dtype=object), dtype=h5py.string_dtype(), compression="gzip")
+        column(peak, "mz", spectra.mz.astype(np.float64), compression="gzip", shuffle=True)
+        column(peak, "intensity", spectra.intensity, compression="lzf")
 
 
 if __name__ == "__main__":

@@ -421,6 +421,317 @@ def library_free_readings(out, truth: dict, cycle_rt, fdr: float = 0.01) -> dict
     }
 
 
+# phase [13a] of ``chip_smoke.py``: the dimethyl-multiplexed search of
+# ``tests/e2e/test_multiplex_e2e.py`` at the library-free world's width. The
+# 20-protein FASTA of phase [10a], digested with fixed light dimethyl on K
+# and every N-terminus (no variable modifications, as the e2e test), the
+# packaged models in float64; the run plants channels 0 and 4 (4 at half
+# intensity) of ``MultiplexLibrary``; channel 12 (2H(6)) is never planted
+MULTIPLEX_MEDIUM = {"Dimethyl@K": "Dimethyl:2H(4)@K", "Dimethyl@Any_N-term": "Dimethyl:2H(4)@Any_N-term"}
+MULTIPLEX_HEAVY = {"Dimethyl@K": "Dimethyl:2H(6)@K", "Dimethyl@Any_N-term": "Dimethyl:2H(6)@Any_N-term"}
+MULTIPLEX_MAPPING = [
+    {"channel_name": 0, "modifications": {}},
+    {"channel_name": 4, "modifications": MULTIPLEX_MEDIUM},
+    {"channel_name": 12, "modifications": MULTIPLEX_HEAVY},
+]
+MULTIPLEX_DIGEST = dict(fixed_modifications="Dimethyl@K;Dimethyl@Any_N-term", variable_modifications="")
+# the e2e test's overrides (its random state set per reading)
+MULTIPLEX_OVERRIDES = {
+    "general": {"save_figures": False},
+    "calibration": {"batch_size": 200, "optimization_lock_target": 30, "min_steps": 2, "max_steps": 5},
+    "search": {"target_ms1_tolerance": 10, "target_ms2_tolerance": 12, "target_rt_tolerance": 60},
+    "library_multiplexing": {"enabled": True, "input_channel": 0, "multiplex_mapping": MULTIPLEX_MAPPING},
+    "multiplexing": {"enabled": True, "target_channels": "0,4", "decoy_channel": 12, "reference_channel": 0},
+    "fdr": {"keep_decoys": False},
+    "tpu": {"selection_batch": 256, "scoring_batch": 256},
+}
+
+
+def write_multiplex_inputs(tmp, world: dict = LIBRARY_FREE_WORLD):
+    """The base library (``base.hdf``, the port's writer) and the run
+    (``run.mzML``, uncompressed) of phase [13a]: (library path, mzML path,
+    the planted flat library's precursors, the run's cycle RTs)."""
+    import numpy as np
+
+    from alphadia_torch.library.digest import digest_fasta
+    from alphadia_torch.library.flatten import FlattenLibrary, InitFlatColumns
+    from alphadia_torch.library.harmonize import IsotopeGenerator, PrecursorInitializer
+    from alphadia_torch.library.multiplex import MultiplexLibrary
+    from alphadia_torch.rawdata import DiaData
+    from alphadia_torch.testing.fasta import write_fasta
+    from alphadia_torch.testing.mzml_writer import write_mzml
+    from alphadia_torch.testing.synthetic import SyntheticConfig, make_run_from_library
+
+    fasta = write_fasta(tmp / "db.fasta", world["n_proteins"], seed=world["fasta_seed"])
+    base = digest_fasta([str(fasta)], **MULTIPLEX_DIGEST)
+    base = IsotopeGenerator()(_float64_prediction()(PrecursorInitializer()(base)))
+    flat = InitFlatColumns()(FlattenLibrary()(MultiplexLibrary(MULTIPLEX_MAPPING[:2])(base.copy())))
+    prec, frag = flat.precursor_df, dict(flat.fragment_df)
+    scale = np.where(prec["channel"] == 4, np.float32(0.5), np.float32(1.0))
+    counts = prec["flat_frag_stop_idx"].astype(np.int64) - prec["flat_frag_start_idx"]
+    frag["intensity"] = (frag["intensity"] * np.repeat(scale, counts)).astype(np.float32)
+    cfg = SyntheticConfig(**{k: v for k, v in world.items() if k not in ("n_proteins", "fasta_seed")})
+    spectra = make_run_from_library(prec, frag, cfg)
+    raw = tmp / "run.mzML"
+    write_mzml(raw, spectra, compress=False)
+    lib_path = tmp / "base.hdf"
+    base.save_hdf(lib_path)
+    return lib_path, raw, prec, DiaData.from_spectra(spectra).cycle_rt
+
+
+def library_sha256(path) -> str:
+    """sha256 over an HDF library's decoded frames (names, dtypes, bytes;
+    text as UTF-8): identity that does not depend on zlib's bytes."""
+    import hashlib
+
+    import numpy as np
+
+    from alphadia_torch.library.loader import load_speclib_hdf
+
+    lib = load_speclib_hdf(path)
+    h = hashlib.sha256()
+    frames = [lib.precursor_df] + ([lib.fragment_df] if hasattr(lib, "fragment_df") else [])
+    for frame in frames:
+        for k, v in frame.items():
+            v = np.asarray(v)
+            data = "\0".join(map(str, v.tolist())).encode() if v.dtype == object else np.ascontiguousarray(v).tobytes()
+            h.update(k.encode() + v.dtype.str.encode() + data)
+    for m in (getattr(lib, "fragment_mz", None), getattr(lib, "fragment_intensity", None)):
+        if m is not None:
+            h.update(np.ascontiguousarray(m).tobytes())
+    return h.hexdigest()
+
+
+def multiplex_readings(out, fdr: float = 0.01) -> dict:
+    """What phase [13a] gates, from a CLI run's output folder: the
+    precursors per channel in ``precursors.parquet`` (decoys dropped, as the
+    e2e test reads it), the channel-0 and channel-4 sequences in common."""
+    from pathlib import Path
+
+    import numpy as np
+
+    from alphadia_torch.utils.parquet import read_parquet
+
+    prec = read_parquet(Path(out) / "precursors.parquet")
+    channel = np.asarray(prec["precursor.channel"]).astype(np.int64)
+    r = {f"channel_{c}": int((channel == c).sum()) for c in (0, 4, 12)}
+    seq = np.asarray(prec["precursor.sequence"]).astype(str)
+    s0, s4 = set(seq[channel == 0]), set(seq[channel == 4])
+    r["shared_4_of_0"] = len(s0 & s4) / max(len(s4), 1)
+    return r
+
+
+# phase [13b] of ``chip_smoke.py``: the transfer requant. The physics world of
+# ``tests/integration/test_transfer_requant.py`` (``testing/physics.py``:
+# sequence-determined RT and MS2) over the library-free world's 20-protein
+# FASTA: the base library's fragment m/z from the sequences, its RT and MS2
+# the physics'; each run plants every fragment of the library (the transfer
+# library's MS2 QC takes a precursor whose median fragment correlation over
+# the whole b/y space passes 0.5: with the top 12 planted of ~64, none does)
+PHYSICS_WORLD = dict(LIBRARY_FREE_WORLD)
+PHYSICS_RUN_SEEDS = (101, 202)
+PHYSICS_PLANTED_TOP_K = 10**6
+
+
+def physics_library(fasta_paths, physics=None, prediction=None, **digest_kw):
+    """Digest -> prediction (float64 on the CPU) -> the physics' RT
+    (``rt_norm``) and MS2 (``b_z1``, ``b_z2``, ``y_z1``, ``y_z2``) ->
+    isotopes: the base library (``SpecLibBase``) and its ``PeptidePhysics``."""
+    import numpy as np
+
+    from alphadia_torch.library.digest import digest_fasta
+    from alphadia_torch.library.harmonize import IsotopeGenerator, PrecursorInitializer
+    from alphadia_torch.testing.physics import FRAG_COLS, PeptidePhysics
+
+    physics = physics or PeptidePhysics()
+    lib = digest_fasta([str(p) for p in fasta_paths], **digest_kw)
+    lib = (prediction or _float64_prediction())(PrecursorInitializer()(lib))
+    df = lib.precursor_df
+    df["rt_norm"] = physics.rt_norm([str(x) for x in df["sequence"]])
+    cols = lib.charged_frag_types
+    inten = lib.fragment_intensity.copy()
+    for seq, z, a, b in zip(df["sequence"], df["charge"], df["frag_start_idx"], df["frag_stop_idx"]):
+        mat = physics.ms2_matrix(str(seq), int(z))
+        block = np.zeros((int(b) - int(a), len(cols)), np.float32)
+        for j, c in enumerate(cols):
+            if c in FRAG_COLS:
+                n = min(len(mat), len(block))
+                block[:n, j] = mat[:n, FRAG_COLS.index(c)]
+        inten[int(a) : int(b)] = block
+    lib.fragment_intensity = inten
+    return IsotopeGenerator()(lib), physics
+
+
+def write_transfer_inputs(tmp, world: dict = PHYSICS_WORLD, runs=PHYSICS_RUN_SEEDS,
+                          planted_top_k: int = PHYSICS_PLANTED_TOP_K, fasta=None, missed_cleavages=None):
+    """The physics world's base library (``physics.hdf``, the port's writer)
+    and its runs (``run_<i>.mzML``, uncompressed; one acquisition seed a
+    run): (library path, mzML paths, the planted flat library, each run's
+    cycle RTs, the physics)."""
+    from alphadia_torch.library.flatten import FlattenLibrary, InitFlatColumns
+    from alphadia_torch.rawdata import DiaData
+    from alphadia_torch.testing.fasta import write_fasta
+    from alphadia_torch.testing.mzml_writer import write_mzml
+    from alphadia_torch.testing.synthetic import SyntheticConfig, make_run_from_library
+
+    if fasta is None:
+        fasta = write_fasta(tmp / "db.fasta", world["n_proteins"], seed=world["fasta_seed"])
+    digest_kw = {} if missed_cleavages is None else {"missed_cleavages": missed_cleavages}
+    base, physics = physics_library([fasta], **digest_kw)
+    truth = InitFlatColumns()(FlattenLibrary(top_k_fragments=planted_top_k, min_fragment_intensity=0.0)(base.copy()))
+    cfg = {k: v for k, v in world.items() if k not in ("n_proteins", "fasta_seed")}
+    raws, cycle_rts = [], []
+    for i, acq in enumerate(runs):
+        spectra = make_run_from_library(truth.precursor_df, truth.fragment_df, SyntheticConfig(**cfg, acq_seed=acq))
+        raws.append(tmp / f"run_{i}.mzML")
+        write_mzml(raws[-1], spectra, compress=False)
+        cycle_rts.append(DiaData.from_spectra(spectra).cycle_rt)
+    lib_path = tmp / "physics.hdf"
+    base.save_hdf(lib_path)
+    return lib_path, raws, truth, cycle_rts, physics
+
+
+# the world of ``tests/integration/test_transfer_requant.py``: four proteins,
+# one missed cleavage, the run planting the top 12 fragments of the physics
+# MS2; its workflow config
+REQUANT_FASTA = """>sp|P001|PROT1 GN=G1
+MKWVTFISLLFLFSSAYSRGVFRRDAHKSEVAHRFKDLGEENFKALVLIAFAQYLQQCPFEDHVKLVNEVTEFAK
+>sp|P002|PROT2 GN=G2
+MTEYKLVVVGAGGVGKSALTIQLIQNHFVDEYDPTIEDSYRKQVVIDGETCLLDILDTAGQEEYSAMRDQYMRTGEGFLCVFAINNTK
+>sp|P003|PROT3 GN=G3
+MGLSDGEWQLVLNVWGKVEADIPGHGQEVLIRLFKGHPETLEKFDKFKHLKSEDEMKASEDLKKHGATVLTALGGILKKKGHHEAEIKPLAQSHATK
+>sp|P004|PROT4 GN=G4
+MSKGEELFTGVVPILVELDGDVNGHKFSVSGEGEGDATYGKLTLKFICTTGKLPVPWPTLVTTFSYGVQCFSR
+"""
+REQUANT_RUN = dict(n_windows=6, n_cycles=300, noise_peaks_per_spectrum=40, seed=5, detectable_fraction=0.9)
+REQUANT_CONFIG = {
+    "general": {"random_state": 42, "save_figures": False, "input_library_type": "flat"},
+    "calibration": {"batch_size": 150, "optimization_lock_target": 30, "min_steps": 2, "max_steps": 6},
+    "search": {"target_ms1_tolerance": 10, "target_ms2_tolerance": 12, "target_rt_tolerance": 60},
+    "search_initial": {"ms1_tolerance": 25, "ms2_tolerance": 25, "rt_tolerance": 0.5},
+    "tpu": {"selection_batch": 256, "scoring_batch": 256},
+    "transfer_library": {"enabled": True, "fragment_types": ["b", "y"], "max_charge": 2},
+}
+
+
+def write_requant_inputs(tmp):
+    """The run (``requant.npz``) and the searched flat library (decoys) of
+    the integration test's physics world, the port's functions throughout:
+    (raw path, flat library, physics)."""
+    from alphadia_torch.library.decoy import DecoyGenerator
+    from alphadia_torch.library.flatten import FlattenLibrary, InitFlatColumns
+    from alphadia_torch.rawdata import save_npz
+    from alphadia_torch.testing.synthetic import SyntheticConfig, make_run_from_library
+
+    fasta = tmp / "requant.fasta"
+    fasta.write_text(REQUANT_FASTA)
+    base, physics = physics_library([fasta], missed_cleavages=1)
+    truth = InitFlatColumns()(FlattenLibrary()(base.copy()))
+    searched = InitFlatColumns()(FlattenLibrary()(DecoyGenerator("diann")(base)))
+    raw = tmp / "requant.npz"
+    save_npz(raw, make_run_from_library(truth.precursor_df, truth.fragment_df, SyntheticConfig(**REQUANT_RUN)))
+    return raw, searched, physics
+
+
+def requant_checks(physics, precursor: dict, psm: dict, scored: dict, requant_psm: dict, requant_frag: dict) -> dict:
+    """The integration test's readings of a requant: PSMs, one row a
+    candidate, the medians of fragments a precursor (scored and
+    requantified, over the precursors in both), the ``flat_frag_*``
+    partition, and the median correlation of the requantified intensities
+    with the planted MS2 over the first 40 common precursors."""
+    import numpy as np
+
+    from alphadia_torch.testing.physics import FRAG_COLS
+
+    def per_precursor(frag):
+        idx, n = np.unique(frag["precursor_idx"], return_counts=True)
+        return dict(zip(idx.tolist(), n.tolist()))
+
+    keys = list(zip(requant_psm["precursor_idx"].tolist(), requant_psm["rank"].tolist()))
+    per_scored, per_requant = per_precursor(scored), per_precursor(requant_frag)
+    common = sorted(set(per_scored) & set(per_requant))
+    starts, stops = requant_psm["flat_frag_start_idx"], requant_psm["flat_frag_stop_idx"]
+    order = np.argsort(starts)
+    s, e = starts[order], stops[order]
+    nonempty = e > s
+    partition = bool((stops >= starts).all() and (s[nonempty][1:] >= e[nonempty][:-1]).all()
+                     and e.max() <= len(requant_frag["precursor_idx"]))
+    partition &= all((requant_frag["precursor_idx"][starts[i] : stops[i]] == requant_psm["precursor_idx"][i]).all()
+                     for i in range(min(20, len(keys))))
+    row = {p: i for i, p in enumerate(precursor["precursor_idx"].tolist())}
+    col_of = {(ord(c.split("_z")[0]), int(c.split("_z")[1])): j for j, c in enumerate(FRAG_COLS)}
+    corrs = []
+    for pidx in common[:40]:
+        sub = requant_frag["precursor_idx"] == pidx
+        if sub.sum() < 6:
+            continue
+        mat = physics.ms2_matrix(str(precursor["sequence"][row[pidx]]), int(precursor["charge"][row[pidx]]))
+        truth = np.array([
+            mat[int(p), col_of[(int(t), int(c))]] if (int(t), int(c)) in col_of and int(p) < len(mat) else 0.0
+            for p, t, c in zip(requant_frag["position"][sub], requant_frag["type"][sub], requant_frag["charge"][sub])
+        ])
+        obs = requant_frag["intensity"][sub]
+        if truth.std() > 0 and obs.std() > 0:
+            corrs.append(np.corrcoef(truth, obs)[0, 1])
+    return {
+        "psms": len(psm["precursor_idx"]),
+        "duplicate_candidates": len(keys) - len(set(keys)),
+        "common_precursors": len(common),
+        "scored_median": float(np.median([per_scored[p] for p in common])) if common else 0.0,
+        "requant_median": float(np.median([per_requant[p] for p in common])) if common else 0.0,
+        "partition": partition,
+        "correlated_precursors": len(corrs),
+        "median_correlation": float(np.median(corrs)) if corrs else 0.0,
+    }
+
+
+def requant_gates(r: dict) -> list:
+    """The integration test's assertions on ``requant_checks``: the names
+    of those that fail."""
+    failed = []
+    for name, ok in (
+        ("psms > 30", r["psms"] > 30),
+        ("one row a candidate", r["duplicate_candidates"] == 0),
+        ("common precursors > 10", r["common_precursors"] > 10),
+        ("requant median > 1.5 x scored", r["requant_median"] > 1.5 * r["scored_median"]),
+        ("flat_frag_* partition", r["partition"]),
+        ("correlated precursors > 8", r["correlated_precursors"] > 8),
+        ("median correlation > 0.5", r["median_correlation"] > 0.5),
+    ):
+        if not ok:
+            failed.append(name)
+    return failed
+
+
+def transfer_readings(out, runs: int = 2) -> dict:
+    """What phase [13b] gates, from a CLI run's output folder: per run the
+    rows of ``frag.parquet`` and ``frag.transfer.parquet`` and the median
+    fragments a precursor in each; the transfer library's PSMs, fragments
+    and precursors (0 where none passed the MS2 QC and none was written)."""
+    from pathlib import Path
+
+    import numpy as np
+
+    from alphadia_torch.utils.parquet import read_parquet
+
+    out = Path(out)
+    r = {}
+    for i in range(runs):
+        for name, key in (("frag.parquet", "scored"), ("frag.transfer.parquet", "transfer")):
+            f = read_parquet(out / "quant" / f"run_{i}" / name)
+            _, per = np.unique(f["precursor_idx"], return_counts=True)
+            r[f"{key}_rows_run_{i}"] = int(len(f["precursor_idx"]))
+            r[f"{key}_median_run_{i}"] = float(np.median(per)) if len(per) else 0.0
+    if not (out / "speclib.transfer.parquet").exists():  # no PSM passed the MS2 QC
+        return {**r, "transfer_psms": 0, "transfer_fragments": 0, "transfer_precursors": 0}
+    psm = read_parquet(out / "speclib.transfer.parquet")
+    frag = read_parquet(out / "speclib.transfer.fragments.parquet")
+    r["transfer_psms"] = int(len(psm["precursor_idx"]))
+    r["transfer_fragments"] = int(len(frag["precursor_idx"]))
+    r["transfer_precursors"] = int(len(np.unique(psm["mod_seq_charge_hash"])))
+    return r
+
+
 # phase [11c] of ``chip_smoke.py``: the 4D quarter world of phase [8]
 # (6,250 peptides + decoys, 3 windows, 600 cycles, with mobility, from
 # sequences) written as a Bruker ``.d`` by the port's writer, its targets as
