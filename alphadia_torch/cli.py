@@ -7,7 +7,8 @@ The JAX package's flags and aliases (``--config`` YAML, repeated
 read by ``config/yaml_subset.load`` (no yaml package on the card machine).
 ``ALPHADIA_TORCH_DEVICE`` (``cpu`` / ``cuda``) picks the device; without it
 the search runs on the card and stops where there is none.
-``--profile-dir`` waits for the profiling slice (ROADMAP queue 1 item 8).
+``--profile-dir DIR`` sets ``general.profile_directory``: a profiler trace
+of each raw file in ``DIR/<raw name>/trace.json``.
 
 Exit codes: 127 a user error (``NotPortedError`` among them), 126 a
 business error, 1 anything else.
@@ -25,7 +26,7 @@ from pathlib import Path
 
 from alphadia_torch import __version__
 from alphadia_torch.config import yaml_subset
-from alphadia_torch.exceptions import BusinessError, NotPortedError, UserError
+from alphadia_torch.exceptions import BusinessError, UserError
 from alphadia_torch.reporting import init_logging
 from alphadia_torch.utils.device import resolve_device
 
@@ -47,7 +48,7 @@ def _build_parser() -> argparse.ArgumentParser:
     p.add_argument("-c", "--config", help="YAML config file")
     p.add_argument("--config-dict", action="append", default=[], help="JSON config override (repeatable)")
     p.add_argument("--quant-dir", "--quant-directory", dest="quant_dir", help="shared quant directory")
-    p.add_argument("--profile-dir", help="write a profiler trace per raw file into this directory (not ported yet)")
+    p.add_argument("--profile-dir", help="write a profiler trace per raw file into this directory")
     return p
 
 
@@ -92,6 +93,8 @@ def _get_cli_config(args, config: dict) -> dict:
         cli["fasta_paths"] = list(args.fasta)
     if args.quant_dir:
         cli["quant_directory"] = args.quant_dir
+    if args.profile_dir:
+        _deep_merge(cli, {"general": {"profile_directory": args.profile_dir}})
     return cli
 
 
@@ -116,11 +119,6 @@ def run(argv: list[str] | None = None) -> None:
     from alphadia_torch.search_plan import SearchPlan
 
     try:
-        if args.profile_dir:
-            raise NotPortedError(
-                "--profile-dir: the per-file profiler trace comes with the profiling slice of the port "
-                "(ROADMAP queue 1 item 8)"
-            )
         # argument and config assembly failures are user errors
         try:
             config = _get_config_from_args(args)

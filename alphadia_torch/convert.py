@@ -136,3 +136,28 @@ def property_models_from_jax(variables: dict) -> dict:
         visit(tree["params"], ())
         out[model] = state
     return out
+
+
+def property_models_to_jax(state_dicts: dict) -> dict:
+    """Flax variables (numpy float32) of each property model from the port's
+    state dicts, ``{"rt": model.state_dict(), ...}``: the inverse of
+    :func:`property_models_from_jax`, so that the JAX package's
+    ``FinetuneManager.load`` reads what the port saves."""
+    layer_of = {name: (path, axes) for path, (name, axes) in _PROPERTY_LAYERS.items()}
+    param_of = {v: k for k, v in _PROPERTY_PARAMS.items()}
+    out = {}
+    for model, sd in state_dicts.items():
+        params: dict = {}
+        for key, value in sd.items():
+            name, kind = key.rsplit(".", 1)
+            path, axes = layer_of[name]
+            a = value.detach().cpu().numpy().astype(np.float32)
+            flax_name = "embedding" if path[-1].startswith("Embed") else param_of[kind]
+            if axes is not None and kind == "weight":
+                a = a.transpose(axes)
+            node = params
+            for part in path:
+                node = node.setdefault(part, {})
+            node[flax_name] = np.ascontiguousarray(a)
+        out[model] = {"params": params}
+    return out

@@ -19,11 +19,18 @@ pickles and writes:
   the precursors identified at ``fdr.fdr``, their observed RT) as
   ``speclib.mbr.hdf``, the MBR step's input; a library that cannot be built
   or written is logged as a warning, as the JAX package logs any failure of
-  that step.
+  that step;
+- with ``transfer_library.enabled`` the transfer library
+  (``speclib.transfer*.parquet``), and with ``transfer_learning.enabled``
+  the property models fine-tuned on it on ``device``
+  (``peptdeep.transfer/models.pkl``, the next step's
+  ``library_prediction.peptdeep_model_path``) and their metrics
+  (``stats.transfer.tsv``).
 
 Tables are parquet (``search_output.file_format``) or TSV. ``timings``
 holds the stages' walls (read, grouping, protein FDR with the MLP's fit
-seconds and epochs, LFQ per level, writes).
+seconds and epochs, LFQ per level, each model's fit with its epochs and
+steps, writes).
 """
 
 from __future__ import annotations
@@ -110,9 +117,12 @@ def _notna(values: np.ndarray) -> np.ndarray:
 
 
 class SearchPlanOutput:
-    def __init__(self, config, output_folder: str | Path):
+    def __init__(self, config, output_folder: str | Path, device=None):
         self.config = config
         self.output_folder = Path(output_folder)
+        # where the transfer step fine-tunes its models: the card unless the
+        # CPU is asked for
+        self.device = device
         self.timings: dict = {}
 
     def build(self, folder_list: list[str | Path], base_spec_lib=None) -> dict:
@@ -128,12 +138,15 @@ class SearchPlanOutput:
             self._build_mbr_library(psm_df, base_spec_lib)
         t4 = time.perf_counter()
         if self.config["transfer_library"]["enabled"]:
-            self._build_transfer_library(folder_list)
+            transfer_psm, transfer_frag = self._build_transfer_library(folder_list)
+            self.timings["transfer_library_s"] = time.perf_counter() - t4
+            if self.config["transfer_learning"]["enabled"] and n_rows(transfer_psm):
+                self._build_transfer_model(transfer_psm, transfer_frag)
         t5 = time.perf_counter()
         self._write(psm_df, PSM_OUTPUT_NAME)
         t6 = time.perf_counter()
         self.timings.update(precursor_table_s=t1 - t0, stat_internal_s=t2 - t1, lfq_s=t3 - t2, mbr_s=t4 - t3,
-                            transfer_library_s=t5 - t4, write_precursors_s=t6 - t5, build_s=t6 - t0)
+                            transfer_s=t5 - t4, write_precursors_s=t6 - t5, build_s=t6 - t0)
         return psm_df
 
     def _build_transfer_library(self, folder_list) -> tuple[dict, dict]:
@@ -151,6 +164,33 @@ class SearchPlanOutput:
             write_parquet(psm, self.output_folder / "speclib.transfer.parquet")
             write_parquet(frag, self.output_folder / "speclib.transfer.fragments.parquet")
         return psm, frag
+
+    def _build_transfer_model(self, transfer_psm: dict, transfer_frag: dict) -> None:
+        """The property models fine-tuned on the transfer library
+        (``peptdeep.transfer/models.pkl``) and their metrics, the list-valued
+        ones left out (``stats.transfer.tsv``). The JAX package logs a failed
+        charge or MS2 fit as a warning; here it is the step's error."""
+        from alphadia_torch.models.finetune import MODEL_DIR_NAME, FinetuneManager
+
+        manager = FinetuneManager(self.config["transfer_learning"], device=self.device)
+        stats = {}
+        fits = (
+            ("rt", lambda: manager.finetune_rt(transfer_psm)),
+            ("charge", lambda: manager.finetune_charge(transfer_psm)),
+            ("ms2", lambda: manager.finetune_ms2(transfer_psm, transfer_frag)),
+            ("ccs", lambda: manager.finetune_ccs(transfer_psm)),
+        )
+        for name, fit in fits:
+            manager.trainer.last_fit = {}
+            t0 = time.perf_counter()
+            metrics = fit()
+            self.timings[f"finetune_{name}_s"] = time.perf_counter() - t0
+            self.timings[f"finetune_{name}_epochs"] = manager.trainer.last_fit.get("epochs", 0)
+            self.timings[f"finetune_{name}_steps"] = manager.trainer.last_fit.get("steps", 0)
+            if name != "ccs":  # the reference's stats row holds no mobility metrics
+                stats.update({f"{name}_{k}": v for k, v in metrics.items() if not isinstance(v, list)})
+        manager.save(self.output_folder / MODEL_DIR_NAME)
+        write_tsv({k: np.asarray([v]) for k, v in stats.items()}, self.output_folder / "stats.transfer.tsv")
 
     def _build_mbr_library(self, psm_df: dict, base_spec_lib) -> None:
         from alphadia_torch.outputs.mbr import MbrLibraryBuilder

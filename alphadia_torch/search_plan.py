@@ -1,16 +1,21 @@
-"""The search plan: one search step, or a library step and a
-match-between-runs (MBR) step after it.
+"""The search plan: up to three search steps, a transfer step, a library
+step and a match-between-runs (MBR) step.
 
-``SearchPlan(output_directory, config, cli_config).run_plan()`` runs a
-``SearchStep`` in the output directory. With ``general.mbr_step_enabled`` it
-first runs the library step in ``library/`` with ``save_mbr_library``, whose
-outputs write ``speclib.mbr.hdf`` (the precursors it identified); the MBR
-step then searches every run again in the output directory with that flat
-library, from the library step's optimized tolerances
-(``_get_optimized_values_config``: the median over runs of ``stat.tsv``'s
-``optimization.*``) and ``MBR_EXTRA``. The transfer step
-(``general.transfer_step_enabled``) needs the fine-tuned models (ROADMAP
-queue 1 item 6): it raises ``NotPortedError`` before any step runs.
+``SearchPlan(output_directory, config, cli_config).run_plan()``:
+
+- with ``general.transfer_step_enabled`` a transfer step first, in
+  ``transfer/``, with ``TRANSFER_EXTRA``: it writes the transfer library and
+  fine-tunes the property models on it (``peptdeep.transfer/``); its
+  optimized tolerances (``_get_optimized_values_config``: the median over
+  runs of ``stat.tsv``'s ``optimization.*``) and, where ``models.pkl`` was
+  written, ``library_prediction.peptdeep_model_path`` are the extras of the
+  steps after it;
+- with ``general.mbr_step_enabled`` the library step in ``library/`` with
+  ``save_mbr_library``, whose outputs write ``speclib.mbr.hdf`` (the
+  precursors it identified); the MBR step then searches every run again in
+  the output directory with that flat library, from the transfer extras,
+  the library step's optimized tolerances and ``MBR_EXTRA``;
+- else one step in the output directory, with the transfer extras.
 """
 
 from __future__ import annotations
@@ -21,7 +26,7 @@ from pathlib import Path
 import numpy as np
 
 from alphadia_torch.constants.keys import StatOutputCols
-from alphadia_torch.exceptions import NotPortedError
+from alphadia_torch.models.finetune import MODEL_DIR_NAME
 from alphadia_torch.reporting import PROGRESS
 from alphadia_torch.search_step import SearchStep
 from alphadia_torch.utils.tsv import read_tsv
@@ -32,7 +37,11 @@ TRANSFER_STEP_NAME = "transfer"
 LIBRARY_STEP_NAME = "library"
 MBR_STEP_NAME = "mbr"
 
-# the MBR step's config overrides (the reference's constants/multistep.yaml)
+# the steps' config overrides (the reference's constants/multistep.yaml)
+TRANSFER_EXTRA = {
+    "transfer_library": {"enabled": True},
+    "transfer_learning": {"enabled": True},
+}
 MBR_EXTRA = {
     "search": {"target_num_candidates": 5},
     "fdr": {"inference_strategy": "library"},
@@ -62,22 +71,27 @@ class SearchPlan:
         self.mbr_step_enabled = bool(general.get("mbr_step_enabled", False))
 
     def run_plan(self) -> None:
+        extra: dict = {}
         if self.transfer_step_enabled:
-            raise NotPortedError(
-                "general.transfer_step_enabled: the transfer step fine-tunes the property models on the transfer "
-                "library, which comes with the transfer-learning slice of the port (ROADMAP queue 1 item 6)"
-            )
+            logger.log(PROGRESS, "=== multistep: transfer step ===")
+            transfer_dir = self.output_directory / TRANSFER_STEP_NAME
+            self.run_step(transfer_dir, {k: dict(v) for k, v in TRANSFER_EXTRA.items()})
+            extra = _merge(extra, self._get_optimized_values_config(transfer_dir))
+            model_path = transfer_dir / MODEL_DIR_NAME
+            if (model_path / "models.pkl").exists():
+                extra = _merge(extra, {"library_prediction": {"peptdeep_model_path": str(model_path)}})
         if not self.mbr_step_enabled:
-            self.run_step(self.output_directory, {})
+            self.run_step(self.output_directory, extra)
             return
         logger.log(PROGRESS, "=== multistep: library step ===")
         library_dir = self.output_directory / LIBRARY_STEP_NAME
-        self.run_step(library_dir, {"general": {"save_mbr_library": True}})
+        self.run_step(library_dir, _merge(extra, {"general": {"save_mbr_library": True}}))
         mbr_lib = library_dir / "speclib.mbr.hdf"
         logger.log(PROGRESS, "=== multistep: mbr step ===")
-        # the library step's optimized tolerances: without them the MBR step
-        # would optimize again from the wide initial ones
-        mbr_extra = _merge(self._get_optimized_values_config(library_dir), MBR_EXTRA)
+        # the transfer extras and the library step's optimized tolerances:
+        # without them the MBR step would optimize again from the wide initial
+        # ones and, without its library, predict with the packaged models
+        mbr_extra = _merge(extra, self._get_optimized_values_config(library_dir), MBR_EXTRA)
         if mbr_lib.exists():
             mbr_extra = _merge(mbr_extra, {"library_path": str(mbr_lib), "general": {"input_library_type": "flat"}})
         self.run_step(self.output_directory, mbr_extra)

@@ -20,17 +20,20 @@
   ``quant/<run>/psm.parquet`` and ``frag.parquet``; with
   ``transfer_library.enabled`` the PSMs quantified again over their whole
   fragment space (``requantify_fragments``) as ``frag.transfer.parquet``
-  (the scored set where that finds fewer fragments); ``reuse_quant`` skips a
-  run whose ``psm.parquet`` exists, errors are collected per run unless
-  ``general.fail_fast``.
+  (the scored set where that finds fewer fragments); with
+  ``general.profile_directory`` a ``torch.profiler`` trace of the three
+  workflow stages in ``<profile_directory>/<run>/trace.json``
+  (``utils/profiling``); ``reuse_quant`` skips a run whose ``psm.parquet``
+  exists, errors are collected per run unless ``general.fail_fast``.
 
 ``run()`` ends with the cross-run outputs of every raw path's quant
 folder (``SearchPlanOutput.build``: ``precursors``, the protein groups and
-their FDR, ``stat.tsv``, ``internal.tsv``, the LFQ matrices), on the host;
-under ``general.fail_fast`` a failed raw file's error is raised before it.
-Settings whose code comes with a later slice raise ``NotPortedError``
-naming it, before any work: several hosts, ``general.profile_directory``,
-``transfer_learning.enabled`` (with ``transfer_library.enabled``). The
+their FDR, ``stat.tsv``, ``internal.tsv``, the LFQ matrices, and with
+``transfer_learning.enabled`` the property models fine-tuned on the
+transfer library, on the step's device), on the host; under
+``general.fail_fast`` a failed raw file's error is raised before it.
+Several hosts, whose code comes with a later slice, raise
+``NotPortedError`` naming it, before any work. The
 multiplexing requant (``PeptideCentricWorkflow.requantify``) has no caller
 here, as in the JAX package: a multiplexed search is the channel library
 searched by the normal path.
@@ -63,6 +66,7 @@ from alphadia_torch.reporting import PROGRESS, init_logging
 from alphadia_torch.utils.device import resolve_device
 from alphadia_torch.utils.frame import n_rows
 from alphadia_torch.utils.parquet import write_parquet
+from alphadia_torch.utils.profiling import profile_trace
 from alphadia_torch.workflow.base import QUANT_FOLDER_NAME
 from alphadia_torch.workflow.peptidecentric.peptidecentric import PeptideCentricWorkflow
 
@@ -108,21 +112,10 @@ class SearchStep:
         self.errors: list[tuple[str, str]] = []
 
     def _refuse_later_slices(self) -> None:
-        general = self.config["general"]
         if int(os.environ.get("WORLD_SIZE", "1")) > 1:
             raise NotPortedError(
                 "searching on several hosts or cards comes with the multi-GPU slice of the port "
                 "(ROADMAP queue 1 item 7)"
-            )
-        if general.get("profile_directory"):
-            raise NotPortedError(
-                "general.profile_directory: the per-file profiler trace comes with the profiling slice of the port "
-                "(ROADMAP queue 1 item 8)"
-            )
-        if self.config["transfer_library"]["enabled"] and self.config["transfer_learning"]["enabled"]:
-            raise NotPortedError(
-                "transfer_learning.enabled: fine-tuning the property models on the transfer library comes with the "
-                "transfer-learning slice of the port (ROADMAP queue 1 item 6)"
             )
 
     def load_library(self) -> SpecLibFlat:
@@ -221,16 +214,18 @@ class SearchStep:
                     raise
 
         folder_list = [quant_dir / Path(p).stem for p in list(self.config["raw_paths"] or [])]
-        SearchPlanOutput(self.config, self.output_folder).build(folder_list, self.spectral_library)
+        SearchPlanOutput(self.config, self.output_folder, self.device).build(folder_list, self.spectral_library)
 
     def _process_raw_file(self, raw_path: str, raw_name: str, quant_dir: Path) -> None:
         per_file_seed = int(self._np_rng.integers(0, 2**31)) if self.config["general"]["random_state"] is not None else None
         workflow = PeptideCentricWorkflow(
             raw_name, self.config, quant_path=str(quant_dir), random_state=per_file_seed, device=self.device
         )
-        workflow.load(raw_path, self.spectral_library.copy())
-        workflow.search_parameter_optimization()
-        psm_df, frag_df = workflow.extraction()
+        profile_dir = self.config["general"].get("profile_directory")
+        with profile_trace(Path(profile_dir) / raw_name if profile_dir else None):
+            workflow.load(raw_path, self.spectral_library.copy())
+            workflow.search_parameter_optimization()
+            psm_df, frag_df = workflow.extraction()
         frag_transfer_df = None
         if self.config["transfer_library"]["enabled"]:
             # an error here is the run's error, as one in extraction() is:

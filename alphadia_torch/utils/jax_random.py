@@ -13,6 +13,8 @@ draws a flax fit sees.
   the two output words xor'ed;
 - ``uniform``: ``bits >> 9 | 0x3F800000`` read as float32, minus 1, scaled
   to ``[minval, maxval)`` and clipped below at ``minval``;
+- ``normal``: ``sqrt(2) * erfinv(u)`` for ``u`` uniform on [nextafter(-1,
+  0), 1) (flax's embedding init);
 - ``truncated_normal``: ``sqrt(2) * erfinv(u)`` for ``u`` uniform on
   ``[erf(lower / sqrt 2), erf(upper / sqrt 2))``, clipped to the open
   interval. ``erfinv`` is XLA's float32 polynomial (Giles), with its
@@ -148,11 +150,28 @@ def truncated_normal(key, shape) -> np.ndarray:
 
 
 def lecun_normal(key, shape) -> np.ndarray:
-    """flax's default Dense kernel init for a kernel [fan_in, fan_out]."""
+    """flax's default Dense and Conv kernel init for a kernel [..., fan_in,
+    fan_out]: the fan-in is ``shape[-2]`` times the receptive field (the
+    product of the leading axes, a convolution's width)."""
     # as ``variance_scaling`` computes it: a float32 variance, its float32
     # root, over the truncated normal's standard deviation in float32
-    stddev = np.sqrt(np.float32(1.0 / shape[-2])) / np.float32(0.87962566103423978)
+    fan_in = shape[-2] * math.prod(shape[:-2])
+    stddev = np.sqrt(np.float32(1.0 / fan_in)) / np.float32(0.87962566103423978)
     return truncated_normal(key, shape) * stddev
+
+
+def normal(key, shape) -> np.ndarray:
+    """``jax.random.normal(key, shape)`` (float32): ``sqrt(2) * erfinv(u)``
+    for ``u`` uniform on [nextafter(-1, 0), 1)."""
+    u = uniform(key, shape, np.nextafter(np.float32(-1), np.float32(0)), 1.0)
+    return np.float32(np.sqrt(2)) * erfinv32(u)
+
+
+def embed_normal(key, shape) -> np.ndarray:
+    """flax's ``default_embed_init`` for a table [num_embeddings, features]:
+    ``variance_scaling(1.0, "fan_in", "normal", out_axis=0)``, whose fan-in
+    is the feature count."""
+    return normal(key, shape) * np.sqrt(np.float32(1.0 / shape[-1]))
 
 
 def split_chain(key, n: int) -> np.ndarray:

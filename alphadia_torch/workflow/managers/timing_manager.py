@@ -6,8 +6,7 @@ import time
 from functools import wraps
 
 import numpy as np
-from torch.profiler import record_function
-
+from alphadia_torch.utils.profiling import annotate
 from alphadia_torch.workflow.managers.base import BaseManager
 
 
@@ -36,7 +35,7 @@ class TimingManager(BaseManager):
 
 def use_timing_manager(phase: str):
     """Times a workflow method into ``self.timing_manager``, and names the
-    span in an active ``torch.profiler`` trace so that the device timeline
+    span in an active profiler trace (``utils/profiling``) so that the device timeline
     and the phase durations line up."""
 
     def deco(fn):
@@ -46,7 +45,7 @@ def use_timing_manager(phase: str):
             if tm is not None:
                 tm.set_start_time(phase)
             try:
-                with record_function(f"alphadia_torch.{phase}"):
+                with annotate(f"alphadia_torch.{phase}"):
                     return fn(self, *args, **kwargs)
             finally:
                 if tm is not None:

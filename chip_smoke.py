@@ -108,7 +108,7 @@ Phases, in order; any failure exits non-zero:
    alphaRaw ``.hdf`` of 50,000,000 peaks (the 3D world tiled in RT) and a
    flat library of 1,000,000 precursors x 12 fragments written and read
    back equal on 1 and on every host thread (MB/s, rows/s), cut where a
-   probe says the phase would pass its 90 s aim; (c) ``alphadia-torch``
+   probe says the phase would pass its 30 s aim; (c) ``alphadia-torch``
    with the MBR step (library step -> ``speclib.mbr.hdf`` -> MBR step) on
    phase [9]'s two runs as alphaRaw ``.hdf`` with ``save_library`` and
    ``save_flat_library``: each step's wall and its outputs', the kernel's
@@ -135,13 +135,29 @@ Phases, in order; any failure exits non-zero:
    launch and then its later ones (overflowing slabs first, the rest in a
    seeded order) are held against the plain version, within 60 s of
    plain-version time in all;
-14. the ``{"kernels": [...]}`` line, then the card's name and power limit,
+14. the three-step plan: ``alphadia-torch`` with the transfer step and
+   the MBR step, library-free on [13b]'s FASTA and two runs (the transfer
+   step predicts with the packaged models, fine-tunes the four property
+   models on its transfer library on the card, and the library step
+   predicts with them): each step's wall and launches (its search passes
+   held against the plain version as in [7]-[13], every launch of the
+   transfer requant), each model's fit (epochs, ms a step), the transfer
+   library's size, the models' metrics, the IDs per run and the protein
+   groups of the library and MBR steps and the MBR library's size gated
+   against the JAX package's CLI on the same inputs, ``models.pkl`` read
+   again predicting within 1e-5 of the live models; then the transfer
+   step's search and fits again on one run, with a short calibration
+   loop, through ``alphadia-torch --profile-dir``: its trace holds the
+   kernel's CUDA events and the workflow's ``alphadia_torch.<phase>``
+   spans;
+15. the ``{"kernels": [...]}`` line, then the card's name and power limit,
    then the ``{"ok": true, ...}`` line last.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import subprocess
@@ -1202,7 +1218,7 @@ def kept_bytes(calls) -> int:
     return sum(seen.values())
 
 
-def summed_device_ms(calls, flush) -> dict:
+def summed_device_ms(calls, flush, reps=KERNEL_REPS) -> dict:
     """Per pass of the workflow ((``steps`` or ``extraction``, selection or
     scoring)) the launches, their summed device ms, each launch run again
     alone on the card, warm (KERNEL_REPS back to back) and after an L2 flush
@@ -1221,8 +1237,8 @@ def summed_device_ms(calls, flush) -> dict:
         ))
         b, o = work(args, kw)
         a["launches"] += 1
-        a["ms"] += device_ms(kernel, KERNEL_REPS)
-        a["flushed_ms"] += device_ms_flushed(kernel, KERNEL_REPS, flush)
+        a["ms"] += device_ms(kernel, reps)
+        a["flushed_ms"] += device_ms_flushed(kernel, reps, flush)
         a["bytes"] += b
         a["ops"] += o
     for a in acc.values():
@@ -1980,7 +1996,7 @@ LF_PREDICTION_ATOL = 1e-4
 # (UniProt UP000005640), the card against the CPU on the first precursors,
 # and the phase's aim in seconds, by which SimplePrediction.forward is cut
 PROTEOME_PREDICTION_CHECK = 20000
-PROTEOME_BUDGET_S = 300.0
+PROTEOME_BUDGET_S = 120.0
 PROTEOME_FORWARD_PROBE = 100000
 
 
@@ -2625,7 +2641,7 @@ def phase11c(root, name, card, launches, secs, tmp):
 HDF_RUN_PEAKS = 50_000_000
 HDF_LIB_PRECURSORS = 1_000_000
 HDF_LIB_FRAGMENTS = 12
-HDF_BUDGET_S = 90.0
+HDF_BUDGET_S = 30.0
 # phase [12c]: the MBR plan (library step -> speclib.mbr.hdf -> MBR step)
 # through alphadia-torch on phase [9]'s two runs written as alphaRaw .hdf by
 # the port's writer (tests/torch_workflow_worlds.write_cli_inputs(...,
@@ -3515,6 +3531,323 @@ def phase13b(root, name, card, launches, secs, tmp):
     return worst
 
 
+# ---------------------------------------------------------------------------
+# [14] the three-step plan on the card
+# ---------------------------------------------------------------------------
+# alphadia-torch with general.transfer_step_enabled and mbr_step_enabled,
+# library-free (library_prediction.enabled) on the FASTA and the two runs of
+# [13b]'s physics world (tests/torch_workflow_worlds.multistep_argv), random
+# state 0; the inputs held by the sha256 of the runs' decoded arrays and of
+# the FASTA. The JAX package's CLI on the same files read, on the CPU
+# (`PYTHONPATH=.:tests python tests/torch_multistep_readings.py
+# --random-state 0 1 2 3 4 5`), the readings below; the port on the card
+# (`... --packages port --device cuda`, PR 12 call 3) read its own six.
+# The port's transfer library sits 2.5-3.5% above JAX's on these runs
+# (ROADMAP §3; [13b]) and its models train on it: its six states lie beyond
+# JAX's band by up to 0.0008 (RT R²), 0.0011 (RT 95th-percentile error),
+# 0.0148 (charge accuracy) and 0.0360 (MS2 spectral angle), where on one
+# transfer library the fits equal JAX's at 1e-3 (tests/test_torch_finetune.py,
+# test_torch_transfer_library.py); and its later steps' identified and false
+# shares by up to 0.0098 and 0.0108 (the card's runs also vary between calls:
+# run_1 of the MBR step read 0.8366 and 0.8282 at state 0 in calls 1 and 3).
+# Gates: the transfer library within 5% of JAX's band ([13b]'s); each model
+# metric within JAX's band widened by MS_METRIC_MARGIN (that distance and
+# about a third more, at least 0.005); the IDs as [12c] gates them with
+# MS_ID_SLACK in place of its 0.005 (0.005 + 0.01 for that distance); the
+# protein groups and the MBR library within 2% of JAX's band
+MS_INPUT_SHA256 = [
+    "64410a860d54f8c8480008e0b3343a8430e9e867b056c984c581fa4c71ffd001",
+    "7825b677dc6588a229cd076ac8730c5191bc980a5240d10f4cc69395a1948a42",
+    "78c49b673ca6ee594498a03ac9ffd239006d0710e93b7b124894db17271fe2d7",
+]
+MS_JAX_READINGS = {  # random states 0, 1, 2, 3, 4, 5
+    "transfer_psms": [3452, 3455, 3458, 3460, 3465, 3451],
+    "transfer_precursors": [1934, 1967, 1973, 1966, 1931, 1970],
+    "rt_r2": [0.939328, 0.943848, 0.930963, 0.936909, 0.94225, 0.938813],
+    "rt_abs_error_95": [0.120577, 0.117962, 0.130629, 0.127038, 0.121184, 0.118504],
+    "charge_accuracy": [0.869377, 0.866106, 0.871496, 0.864331, 0.868237, 0.868494],
+    "ms2_spectral_angle": [0.598224, 0.597276, 0.598674, 0.59817, 0.600373, 0.597334],
+    "library_identified_run_0": [0.823633, 0.822581, 0.819776, 0.827139, 0.822581, 0.821178],
+    "library_false_run_0": [0.258222, 0.259514, 0.255918, 0.256462, 0.256795, 0.272098],
+    "library_identified_run_1": [0.807854, 0.821178, 0.821529, 0.823282, 0.812412, 0.821529],
+    "library_false_run_1": [0.246377, 0.263073, 0.262987, 0.264919, 0.253994, 0.264587],
+    "library_protein_groups": [20, 20, 20, 20, 20, 20],
+    "mbr_identified_run_0": [0.839762, 0.843268, 0.840813, 0.837307, 0.840813, 0.839762],
+    "mbr_false_run_0": [0.267145, 0.273626, 0.271321, 0.273126, 0.271429, 0.274277],
+    "mbr_identified_run_1": [0.842216, 0.840112, 0.846073, 0.845722, 0.838008, 0.839411],
+    "mbr_false_run_1": [0.282092, 0.269734, 0.273697, 0.277493, 0.275437, 0.275903],
+    "mbr_protein_groups": [20, 20, 20, 20, 20, 20],
+    "mbr_library_precursors": [2744, 2790, 2779, 2783, 2760, 2764],
+}
+MS_TRANSFER_REL_BAND = 0.05
+MS_REL_BAND = 0.02
+MS_METRIC_MARGIN = {"rt_r2": 0.005, "rt_abs_error_95": 0.005, "charge_accuracy": 0.02, "ms2_spectral_angle": 0.05}
+MS_ID_SLACK = 0.015
+MS_PREDICT_TOL = 1e-5
+MS_KERNEL_REPS = 5  # each launch of the plan timed alone: 812 launches
+MS_PROFILE_PHASES = ("alphadia_torch.load", "alphadia_torch.optimization", "alphadia_torch.extraction")
+
+
+def trace_readings(path: Path) -> dict:
+    """A Chrome trace's kernel events, those of the XIC kernel, and the
+    ``alphadia_torch.*`` phases it names: counted while the file streams
+    past (a raw file's trace holds millions of events)."""
+    keys = {"kernel_events": b'"cat": "kernel"', "xic_kernel_events": b"xic_kernel"}
+    keys.update({p: f'"name": "{p}"'.encode() for p in MS_PROFILE_PHASES})
+    counts, tail = dict.fromkeys(keys, 0), b""
+    with open(path, "rb") as f:
+        while chunk := f.read(1 << 26):
+            buf = tail + chunk
+            cut = max(len(buf) - 64, 0)  # a key that straddles the cut is counted with the next chunk
+            for k, needle in keys.items():
+                counts[k] += buf.count(needle, 0, cut + len(needle) - 1) if cut else 0
+            tail = buf[cut:]
+    for k, needle in keys.items():
+        counts[k] += tail.count(needle)
+    return {"xic_kernel_events": counts["xic_kernel_events"], "kernel_events": counts["kernel_events"],
+            "spans": [p for p in MS_PROFILE_PHASES if counts[p]], "mb": path.stat().st_size / 1e6}
+
+
+# the traced run's calibration loop, short (that of the requant integration
+# test's world): a traced step of one run at the default loop took 110.9 s
+# against 44 s untraced (PR 12 call 7), its trace 1.9 GB of 1.9 M kernel
+# events, nearly all the FDR fits' graph replays
+MS_PROFILE_CALIBRATION = {"batch_size": 150, "optimization_lock_target": 30, "min_steps": 2, "max_steps": 4}
+
+
+def profiled_transfer_step(raw, fasta, tmp, name, card) -> list:
+    """``alphadia-torch --profile-dir`` with the transfer library and
+    learning on one run, library-free, no later step: the trace's checks
+    (one trace holding the XIC kernel's CUDA events and the workflow's
+    phases, the tuned models written)."""
+    import torch
+
+    import alphadia_torch.cli as cli
+    from alphadia_torch.models.finetune import MODEL_DIR_NAME
+    from alphadia_torch.ops import xic_cuda
+    from torch_workflow_worlds import multistep_argv
+
+    prof, out = tmp / "multistep_prof", tmp / "multistep_prof_out"
+    argv = multistep_argv(out, [raw], fasta, 0, profile_dir=prof, mbr=False)
+    cfg = json.loads(argv[argv.index("--config-dict") + 1])
+    cfg["general"]["transfer_step_enabled"] = False
+    cfg.update(transfer_library={"enabled": True}, transfer_learning={"enabled": True},
+               calibration=MS_PROFILE_CALIBRATION)
+    argv[argv.index("--config-dict") + 1] = json.dumps(cfg)
+    code = 0
+    torch.cuda.synchronize()
+    xic_cuda.launches = 0
+    t0 = time.perf_counter()
+    try:
+        cli.run(argv)
+    except SystemExit as e:
+        code = e.code
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    traces = sorted((prof / raw.stem).glob("trace*.json"))
+    found = [trace_readings(t) for t in traces]
+    models = (out / MODEL_DIR_NAME / "models.pkl").exists()
+    log(f"[14] the transfer step on one run with --profile-dir (calibration {json.dumps(MS_PROFILE_CALIBRATION)}): "
+        f"exit {code}, wall {wall:.4f} s, {xic_cuda.launches} kernel launches, models written {models}; traces "
+        f"{[t.name for t in traces]}: {json.dumps(found)} ({name}, {card})")
+    checks = [("profiled step exit", code, (0, 0)), ("profiled step models written", int(models), (1, 1)),
+              ("traces", len(traces), (1, 1))]
+    for i, f in enumerate(found):
+        checks.append((f"trace {i} xic_kernel events", f["xic_kernel_events"], (1, float("inf"))))
+        checks.append((f"trace {i} phase spans", len(f["spans"]), (len(MS_PROFILE_PHASES), len(MS_PROFILE_PHASES))))
+    return checks
+
+
+def phase14(root, name, card, launches, secs, tmp):
+    """The three-step plan through ``alphadia-torch`` on the card, gated on
+    the JAX CLI's readings; then the plan on one run with ``--profile-dir``."""
+    import torch
+
+    import alphadia_torch.cli as cli
+    import alphadia_torch.search_step as search_step
+    from alphadia_torch.models import finetune
+    from alphadia_torch.ops import xic_cuda
+    from alphadia_torch.outputs.search_plan_output import SearchPlanOutput
+    from alphadia_torch.rawdata import DiaData
+    from alphadia_torch.rawdata.mzml import read_mzml
+    from alphadia_torch.utils.parquet import read_parquet
+    from alphadia_torch.workflow.peptidecentric.optimization_handler import OptimizationHandler
+
+    sys.path.insert(0, str(root / "tests"))
+    from torch_workflow_worlds import multistep_argv, multistep_readings, physics_truth, spectra_sha256
+    from torch_workflow_worlds import write_transfer_inputs
+
+    t0 = time.perf_counter()
+    d = tmp / "multistep"
+    d.mkdir()
+    _, raws, planted, _, _ = write_transfer_inputs(d)
+    fasta = d / "db.fasta"
+    spectra = [read_mzml(r) for r in raws]
+    cycle_rts = [DiaData.from_spectra(x).cycle_rt for x in spectra]
+    sha = [spectra_sha256(x) for x in spectra] + [hashlib.sha256(fasta.read_bytes()).hexdigest()]
+    del spectra
+    truth = physics_truth(planted)
+    log(f"[14] inputs: the physics world's FASTA and 2 runs; sha256 {sha}; made on the host in "
+        f"{time.perf_counter() - t0:.2f} s")
+    if sha != MS_INPUT_SHA256:
+        raise AssertionError("multistep inputs: not the files of the JAX readings")
+
+    steps, fits, managers = [], [], []
+    workflow_cls = search_step.PeptideCentricWorkflow
+    process_batch = OptimizationHandler._process_batch
+    run, build_model, save = search_step.SearchStep.run, SearchPlanOutput._build_transfer_model, finetune.FinetuneManager.save
+
+    class Captured(workflow_cls):
+        def load(self, *a, **k):
+            rec.stage = "load"
+            return super().load(*a, **k)
+
+        def extraction(self):
+            rec.stage = "extraction"
+            return super().extraction()
+
+        def requantify_fragments(self, psm):
+            rec.stage = "transfer_requant"
+            return super().requantify_fragments(psm)
+
+    def staged(handler):
+        rec.stage = f"step{len(handler.step_log)}"
+        return process_batch(handler)
+
+    def timed_run(self):
+        entry = {"dir": Path(self.output_folder).name, "first_call": len(rec.calls)}
+        steps.append(entry)
+        t = time.perf_counter()
+        try:
+            return run(self)
+        finally:
+            torch.cuda.synchronize()
+            entry["wall"] = time.perf_counter() - t
+            entry["calls"] = len(rec.calls) - entry["first_call"]
+
+    def timed_model(self, *a, **k):
+        t = time.perf_counter()
+        try:
+            return build_model(self, *a, **k)
+        finally:
+            fits.append({**self.timings, "wall": time.perf_counter() - t})
+
+    def kept(self, directory):
+        managers.append(self)
+        return save(self, directory)
+
+    def plan(argv):
+        search_step.PeptideCentricWorkflow = Captured
+        OptimizationHandler._process_batch = staged
+        search_step.SearchStep.run = timed_run
+        SearchPlanOutput._build_transfer_model = timed_model
+        finetune.FinetuneManager.save = kept
+        code = 0
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            xic_cuda.launches = 0
+            t = time.perf_counter()
+            try:
+                cli.run(argv)
+            except SystemExit as e:
+                code = e.code
+            torch.cuda.synchronize()
+            return code, time.perf_counter() - t, xic_cuda.launches, torch.cuda.max_memory_allocated()
+        finally:
+            search_step.PeptideCentricWorkflow = workflow_cls
+            OptimizationHandler._process_batch = process_batch
+            search_step.SearchStep.run = run
+            SearchPlanOutput._build_transfer_model = build_model
+            finetune.FinetuneManager.save = save
+
+    out = tmp / "multistep_out"
+    with Recorder() as rec:
+        code, wall, n_launch, peak = plan(multistep_argv(out, raws, fasta, 0))
+    log(f"[14] alphadia-torch (transfer step -> library step -> MBR step, library-free, 2 runs): exit {code}, wall "
+        f"{wall:.4f} s, peak device memory {peak / 2**30:.3f} GiB ({name}, {card})")
+    if code != 0:
+        raise AssertionError(f"the three-step plan exited {code}")
+    if n_launch != len(rec.calls) or n_launch == 0:
+        raise AssertionError(f"three-step plan: {n_launch} kernel launches counted, {len(rec.calls)} wrapper calls recorded")
+    if [x["dir"] for x in steps] != ["transfer", "library", out.name] or len(fits) != 1 or len(managers) != 1:
+        raise AssertionError(f"three-step plan: steps ran in {[x['dir'] for x in steps]}, {len(fits)} model builds")
+
+    worst = [0.0, 0.0]
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=DEVICE)
+    for label, entry in zip(("transfer_step", "library_step", "mbr_step"), steps):
+        calls = rec.calls[entry["first_call"] : entry["first_call"] + entry["calls"]]
+        search = [c for c in calls if c[0] != "transfer_requant"]
+        requant = [c for c in calls if c[0] == "transfer_requant"]
+        launches[f"multistep_{label}"] = len(calls)
+        secs[f"multistep_{label}"] = entry["wall"]
+        w = launches_against_plain("[14]", label, search)
+        worst = [max(worst[0], w[0]), max(worst[1], w[1])]
+        if requant:
+            w, _ = all_launches_against_plain("[14]", f"{label} transfer requant", requant)
+            worst = [max(worst[0], w[0]), max(worst[1], w[1])]
+        per_pass = summed_device_ms(calls, flush, reps=MS_KERNEL_REPS)
+        for (stage, pass_name), acc in sorted(per_pass.items()):
+            log(
+                f"[14] {label} kernel, {stage} {pass_name}: {acc['launches']} launches, {acc['ms']:.4f} ms warm "
+                f"({acc['bound_ms'] / acc['ms']:.2f} of bound), L2 flushed {acc['flushed_ms']:.4f} ms, bound "
+                f"{acc['bound_ms']:.4f} ms ({acc['bytes'] / 1e6:.2f} MB) ({name}, {card})"
+            )
+        kernel_ms = sum(x["ms"] for x in per_pass.values())
+        log(f"[14] {label}: wall {entry['wall']:.4f} s; {len(calls)} kernel launches ({len(requant)} of the transfer "
+            f"requant), summed {kernel_ms:.4f} ms warm, {kernel_ms / (entry['wall'] * 1e3):.5f} of the step's wall "
+            f"({name}, {card})")
+    del flush
+    fit = fits[0]
+    for model in ("rt", "charge", "ms2", "ccs"):
+        n_steps = fit.get(f"finetune_{model}_steps", 0)
+        log(f"[14] fit {model}: {fit[f'finetune_{model}_s']:.4f} s, {fit.get(f'finetune_{model}_epochs', 0)} epochs, "
+            f"{n_steps} steps, {fit[f'finetune_{model}_s'] * 1e3 / max(n_steps, 1):.3f} ms a step (the predictions "
+            f"and the metrics included) ({name}, {card})")
+    log(f"[14] _build_transfer_model {fit['wall']:.4f} s, _build_transfer_library {fit.get('transfer_library_s', 0):.4f} s")
+
+    got = multistep_readings(out, truth, cycle_rts)
+    log(f"[14] readings: {json.dumps(got)}")
+    jax = MS_JAX_READINGS
+    checks = [(k, got[k], band(jax[k], rel=MS_TRANSFER_REL_BAND)) for k in ("transfer_psms", "transfer_precursors")]
+    checks += [(k, got[k], band(jax[k], add=m)) for k, m in MS_METRIC_MARGIN.items()]
+    for step in ("library", "mbr"):
+        for r in range(2):
+            k = f"{step}_identified_run_{r}"
+            checks.append((k, got[k], (min(jax[k]) - MS_ID_SLACK, 1.0)))
+            k = f"{step}_false_run_{r}"
+            checks.append((k, got[k], (0.0, max(0.02, max(jax[k]) + MS_ID_SLACK))))
+        checks.append((f"{step}_protein_groups", got[f"{step}_protein_groups"], band(jax[f"{step}_protein_groups"],
+                                                                                      rel=MS_REL_BAND)))
+    checks.append(("mbr_library_precursors", got["mbr_library_precursors"], band(jax["mbr_library_precursors"],
+                                                                                rel=MS_REL_BAND)))
+
+    # models.pkl read again on the card against the live models
+    live = managers[0]
+    back = finetune.FinetuneManager.load(out / "transfer" / finetune.MODEL_DIR_NAME)
+    tl = read_parquet(out / "transfer" / "speclib.transfer.parquet")
+    args = [list(tl["sequence"]), list(tl["mods"]), list(tl["mod_sites"])]
+    z = tl["charge"].astype(np.int32)
+    diffs = {}
+    for method, extra in (("predict_rt", ()), ("predict_charge", ()), ("predict_ms2", (z,))):
+        diffs[method] = float(np.abs(getattr(back, method)(*args, *extra) - getattr(live, method)(*args, *extra)).max())
+    log(f"[14] models.pkl read again ({sorted(back.variables)}): largest difference from the live models "
+        f"{json.dumps(diffs)} on the {len(z)} transfer PSMs")
+    checks += [(f"models.pkl {k}", v, (0.0, MS_PREDICT_TOL)) for k, v in diffs.items()]
+
+    checks += profiled_transfer_step(raws[0], fasta, tmp, name, card)
+
+    failed = []
+    for k, v, (lo, hi) in checks:
+        ok = lo <= v <= hi
+        log(f"[14] gate {k}: {v:.6g} in [{lo:.6g}, {hi:.6g}] {'ok' if ok else 'FAILED'} ({name}, {card})")
+        if not ok:
+            failed.append(k)
+    if failed:
+        raise AssertionError(f"three-step plan: gates failed: {failed}")
+    return worst
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true", help="also trace one pass of each path")
@@ -3723,7 +4056,15 @@ def main(argv=None) -> int:
             f"launches held against the plain version in phases [7]-[13] beyond the requants: {PLAIN_SAMPLES['held']} "
             f"of {PLAIN_SAMPLES['launches']} ({name}, {card})")
 
-    # ---- 14. summary lines --------------------------------------------------
+        # ---- 14. the three-step plan -------------------------------------------
+        t14 = time.perf_counter()
+        w = phase14(root, name, card, launches, secs, tmp)
+        max_abs_err = max(max_abs_err, w[0])
+        log(f"[14] kernel launches per run: {json.dumps(launches)}; phase [14] took {time.perf_counter() - t14:.2f} s; "
+            f"launches held against the plain version in phases [7]-[14] beyond the requants: {PLAIN_SAMPLES['held']} "
+            f"of {PLAIN_SAMPLES['launches']} ({name}, {card})")
+
+    # ---- 15. summary lines --------------------------------------------------
     kernels = {
         "kernels": [
             {

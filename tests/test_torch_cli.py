@@ -5,8 +5,8 @@
   same exit codes (127 user error, 126 business error, 1 anything else),
   ``--version``, the reference aliases, ``-d`` with a ``.d`` directory,
   ``output_directory`` from a ``--config`` YAML.
-- Refusals: the transfer step (alone or with the MBR step) and
-  ``--profile-dir`` exit 127 and name their ROADMAP items; without a card and without
+- The transfer step (alone or with the MBR step) and ``--profile-dir``
+  reach the plan as in JAX's CLI; without a card and without
   ``ALPHADIA_TORCH_DEVICE=cpu`` the CLI exits non-zero naming the device.
 - End to end, ROADMAP queue 1 item 2's gate: both CLIs on the two runs of
   ``tests/e2e/test_cli_e2e.py`` (300 peptides, 6 windows, 350 cycles, seed
@@ -109,24 +109,32 @@ def test_config_file_directory_scan_and_aliases(tmp_path, on_cpu, monkeypatch):
     assert (a.output, a.file, a.regex, a.config) == ("/o", ["a.mzML"], "x", "c.yaml")
 
 
-REFUSALS = {
-    "transfer_step": (["--config-dict", json.dumps({"general": {"transfer_step_enabled": True}})], "item 6"),
+LATER_FLAGS = {
+    "transfer_step": (["--config-dict", json.dumps({"general": {"transfer_step_enabled": True}})],
+                      {"transfer_step_enabled": True}),
     "transfer_and_mbr_steps": (
         ["--config-dict", json.dumps({"general": {"transfer_step_enabled": True, "mbr_step_enabled": True}})],
-        "item 6",
+        {"transfer_step_enabled": True, "mbr_step_enabled": True},
     ),
-    "profile_dir": (["--profile-dir", "prof"], "item 8"),
+    "profile_dir": (["--profile-dir", "prof"], {"profile_directory": "prof"}),
 }
 
 
-@pytest.mark.parametrize("case", REFUSALS)
-def test_refusals_exit_127_naming_their_item(tmp_path, on_cpu, caplog, case):
-    extra, item = REFUSALS[case]
-    with caplog.at_level(logging.ERROR, logger="alphadia_torch"):
-        code = _exit_code(port_cli.run, ["-o", str(tmp_path / "out"), "-f", "x.mzML", "-l", "lib.tsv", *extra])
-    assert code == 127
-    assert any(f"ROADMAP queue 1 {item}" in r.getMessage() for r in caplog.records)
-    assert not (tmp_path / "out" / "quant").exists()
+@pytest.mark.parametrize("case", LATER_FLAGS)
+def test_transfer_steps_and_profile_dir_reach_the_plan_as_jax(tmp_path, on_cpu, monkeypatch, case):
+    """The transfer step (alone or with the MBR step) and ``--profile-dir``
+    reach ``SearchPlan`` in the CLI config layer of JAX's CLI, and the plan
+    runs (each package's ``run_plan`` recorded)."""
+    extra, general = LATER_FLAGS[case]
+    seen = {}
+    for who, module in (("jax", jax_plan), ("port", port_plan)):
+        monkeypatch.setattr(module.SearchPlan, "run_plan", lambda self, who=who: seen.setdefault(
+            who, (str(self.output_directory), self.cli_config, self.transfer_step_enabled, self.mbr_step_enabled)))
+    argv = ["-o", str(tmp_path / "out"), "-f", "x.mzML", "-l", "lib.tsv", *extra]
+    assert _both(argv) == (0, 0)
+    assert seen["port"] == seen["jax"]
+    assert seen["port"][1]["general"] == general
+    assert seen["port"][2:] == (general.get("transfer_step_enabled", False), general.get("mbr_step_enabled", False))
 
 
 def test_no_card_without_the_cpu_asked_for(tmp_path, monkeypatch, caplog):

@@ -590,3 +590,67 @@ def test_property_models_on_card_match_the_cpu(name):
     want = getattr(FinetuneManager.load(PACKAGED_MODELS, device="cpu"), method)(*args)
     assert len(want) > FinetuneManager.PREDICT_BATCH  # a full batch and a padded tail
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+
+
+def _finetune_inputs(n=240, seed=11):
+    """Seeded PSMs (two runs) and fragments as column dicts, numpy only:
+    RT from hydrophobicity, charges from the basic residues, mobility from
+    length and charge, b/y intensities along the backbone."""
+    rng = np.random.default_rng(seed)
+    aas = np.array(list("ACDEFGHIKLMNPQRSTVWY"))
+    hydro = dict(zip(aas.tolist(), np.linspace(-1.0, 2.0, len(aas))))
+    seqs = ["".join(rng.choice(aas, rng.integers(7, 22))) for _ in range(n)]
+    rt = np.array([sum(hydro[a] for a in s) / len(s) for s in seqs])
+    rt = (rt - rt.min()) / (rt.max() - rt.min())
+    seq2 = seqs * 2
+    z = np.array([2 + min(sum(a in "KRH" for a in s), 2) for s in seq2]) - (rng.random(2 * n) < 0.15)
+    psm = {
+        "run": np.repeat(np.array(["a", "b"], dtype=object), n), "precursor_idx": np.tile(np.arange(n), 2),
+        "sequence": np.array(seq2, dtype=object), "mods": np.full(2 * n, "", dtype=object),
+        "mod_sites": np.full(2 * n, "", dtype=object), "charge": z.astype(np.int64),
+        "mod_seq_hash": np.tile(np.arange(n, dtype=np.uint64) * 7919 % 1000003, 2),
+        "rt_norm": (np.tile(rt, 2) + rng.normal(0, 0.02, 2 * n)).astype(np.float32),
+        "mobility_observed": (0.6 + 0.02 * np.array([len(s) for s in seq2]) / z).astype(np.float32),
+    }
+    rows = [(r, i, t, fz, pos, np.exp(-0.2 * abs(pos - len(s) / 2)) / fz + rng.random() * 0.1)
+            for r, i, s in zip(psm["run"], psm["precursor_idx"], seq2)
+            for pos in range(len(s) - 1) for t, fz in ((98, 1), (121, 1), (121, 2))]
+    cols = list(zip(*rows))
+    frag = {"run": np.array(cols[0], dtype=object), "precursor_idx": np.array(cols[1]), "type": np.array(cols[2]),
+            "charge": np.array(cols[3]), "position": np.array(cols[4]), "intensity": np.array(cols[5], np.float32)}
+    return psm, frag
+
+
+@pytest.mark.parametrize("name", ["rt", "charge", "ms2", "ccs"])
+def test_finetune_on_card_matches_the_cpu(name):
+    """Each ``finetune_*`` on the card (TF32 off) against the same fit on
+    the CPU, the same config and random state, 3 epochs of 3 steps: the
+    split equal, the validation and test losses within rtol 1e-3, the
+    metrics within rtol 1e-3, the predictions within atol 1e-3 (the two
+    devices sum the convolution gradients in other orders, and Adam and an
+    L1 loss spread that as between the JAX package and the port on the CPU:
+    ``tests/test_torch_finetune.py``); needs the card only, not nvcc."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from alphadia_torch.models.finetune import FinetuneManager
+
+    psm, frag = _finetune_inputs()
+    out, split = {}, {}
+    for dev in ("cuda", "cpu"):
+        mgr = FinetuneManager({"epochs": 3, "batch_size": 112}, random_state=3, device=dev)
+        s = mgr.trainer.split
+        mgr.trainer.split = lambda n, rng, dev=dev, s=s: split.setdefault(dev, s(n, rng))
+        metrics = getattr(mgr, f"finetune_{name}")(*((psm, frag) if name == "ms2" else (psm,)))
+        args = [list(psm["sequence"]), list(psm["mods"]), list(psm["mod_sites"])]
+        pred = {"rt": lambda: mgr.predict_rt(*args), "charge": lambda: mgr.predict_charge(*args),
+                "ms2": lambda: mgr.predict_ms2(*args, psm["charge"]),
+                "ccs": lambda: mgr.predict_mobility(*args, psm["charge"])}[name]()
+        out[dev] = metrics, pred
+    assert all(np.array_equal(a, b) for a, b in zip(split["cuda"], split["cpu"]))
+    (mc, pc), (mh, ph) = out["cuda"], out["cpu"]
+    np.testing.assert_allclose(mc["history"], mh["history"], rtol=1e-3)
+    np.testing.assert_allclose(np.array(mc["test_history"]), np.array(mh["test_history"]), rtol=1e-3)
+    for k, v in mh.items():
+        if not isinstance(v, list):
+            np.testing.assert_allclose(mc[k], v, rtol=1e-3, err_msg=k)
+    np.testing.assert_allclose(pc, ph, atol=1e-3)

@@ -116,6 +116,7 @@ import alphadia_torch.library.multiplex
 import alphadia_torch.outputs.transfer_library
 import alphadia_torch.workflow.peptidecentric.multiplexing_handler
 import alphadia_torch.workflow.peptidecentric.transfer_requant_handler
+import alphadia_torch.utils.profiling
 cfg = alphadia_torch.config.load_default_config()
 assert cfg["tpu"]["gather_slab"] == 256
 import tempfile
@@ -209,6 +210,51 @@ def test_library_free_build_runs_without_the_blocked_packages(tmp_path):
     assert proc.stdout.strip().endswith("ok")
 
 
+# torch.optim's first optimizer imports torch._dynamo, which asks
+# importlib.util.find_spec whether pandas and other optional packages exist
+# (None on the card machine, an ImportError from the blocker here): it is
+# imported before the blocker goes in
+_BLOCKED_FINETUNE = "import torch._dynamo\n" + _BLOCKED_IMPORT.split("import alphadia_torch\n")[0] + """
+from pathlib import Path
+import numpy as np
+from alphadia_torch.models.finetune import FinetuneManager
+from alphadia_torch.utils.profiling import profile_trace
+tmp = Path(%r)
+rng = np.random.default_rng(0)
+seqs = np.array(["".join(rng.choice(list("ACDEFGHIKLMNPQRSTVWY"), 9)) for _ in range(40)], dtype=object)
+psm = {"sequence": seqs, "mods": np.full(40, "", dtype=object), "mod_sites": np.full(40, "", dtype=object),
+       "rt_norm": rng.random(40).astype(np.float32), "charge": np.full(40, 2), "mod_seq_hash": np.arange(40),
+       "precursor_idx": np.arange(40)}
+frag = {"precursor_idx": np.repeat(np.arange(40), 4), "type": np.tile([98, 121], 80), "charge": np.ones(160, np.int64),
+        "position": np.tile([0, 0, 1, 1], 40), "intensity": rng.random(160).astype(np.float32)}
+with profile_trace(tmp / "prof"):
+    mgr = FinetuneManager({"epochs": 2, "batch_size": 8}, device="cpu")
+    mgr.finetune_rt(psm)
+    mgr.finetune_charge(psm)
+    mgr.finetune_ms2(psm, frag)
+    assert mgr.finetune_ccs(psm) == {}
+mgr.save(tmp / "models")
+back = FinetuneManager.load(tmp / "models", device="cpu")
+assert np.allclose(back.predict_rt(list(seqs)), mgr.predict_rt(list(seqs)), atol=1e-6)
+assert (tmp / "prof" / "trace.json").exists()
+loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+assert not loaded, loaded
+print("ok")
+"""
+
+
+def test_finetune_and_profiling_run_without_the_blocked_packages(tmp_path):
+    """The four fits from flax's init drawn without JAX, ``models.pkl``
+    written and read again, a profiler trace around them: no blocked
+    package."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_FINETUNE % (str(REPO), str(tmp_path))],
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().endswith("ok")
+
+
 # file-format identifiers the JAX package writes into its HDF files (root
 # attribute ``format``); the port writes and reads the same strings
 HDF_FORMATS = ("alphadia_tpu_spectra", "alphadia_tpu_speclib_base", "alphadia_tpu_speclib_flat")
@@ -265,6 +311,7 @@ def test_fdr_and_driver_entry_points_default_to_the_card(tmp_path):
         lambda: RtWindowedSearch(None, {}, {}),
         lambda: SearchStep(str(tmp_path / "step")),
         lambda: FinetuneManager.load(PACKAGED_MODELS),
+        lambda: FinetuneManager({"epochs": 1}),
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()

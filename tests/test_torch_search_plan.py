@@ -8,8 +8,9 @@ no search runs):
   step and then the MBR step with the directories and extras of JAX's
   (the library step's tolerances from its ``stat.tsv``, the flat
   ``speclib.mbr.hdf`` where it was written);
-- the transfer step (alone or with the MBR step) raises ``NotPortedError``
-  naming its ROADMAP items before any step runs;
+- the transfer step (alone or before the library and MBR steps) runs first
+  in ``transfer/`` and hands every later step its tolerances and, where it
+  wrote ``models.pkl``, its model directory, as JAX's plan does;
 - ``_get_optimized_values_config`` gives JAX's result on the same
   ``stat.tsv`` (medians, a NaN column, no file); ``_merge`` equals JAX's;
 - ``SearchStep.run`` ends with ``SearchPlanOutput.build`` over every raw
@@ -21,8 +22,7 @@ import pandas as pd
 import pytest
 
 import alphadia_torch.search_step as port_step
-from alphadia_torch.exceptions import NotPortedError
-from alphadia_torch.search_plan import SearchPlan, _merge
+from alphadia_torch.search_plan import TRANSFER_EXTRA, SearchPlan, _merge
 from alphadia_torch.search_step import SearchStep
 from alphadia_tpu.search_plan import SearchPlan as JaxSearchPlan
 from alphadia_tpu.search_plan import _merge as jax_merge
@@ -96,18 +96,57 @@ def test_mbr_plan_runs_the_library_and_mbr_steps_as_jax(tmp_path, monkeypatch, c
     assert ("target_ms2_tolerance" in mbr_extra["search"]) == ("stat.tsv" in outputs)
 
 
-LATER = {
-    "transfer": ({"general": {"transfer_step_enabled": True}}, {}, "item 6"),
-    "both": ({"general": {"transfer_step_enabled": True, "mbr_step_enabled": True}}, {}, "item 6"),
+TRANSFER = {
+    "transfer": ({"general": {"transfer_step_enabled": True}}, {}, ("stat.tsv", "models.pkl")),
+    "both": ({"general": {"transfer_step_enabled": True, "mbr_step_enabled": True}}, {},
+             ("stat.tsv", "models.pkl", "speclib.mbr.hdf")),
+    "transfer_without_models": ({}, {"general": {"transfer_step_enabled": True}}, ("stat.tsv",)),
+    "both_without_outputs": ({"general": {"transfer_step_enabled": True}}, {"general": {"mbr_step_enabled": True}}, ()),
 }
 
 
-@pytest.mark.parametrize("case", LATER)
-def test_later_steps_raise_before_any_step(tmp_path, recorded, case):
-    config, cli, items = LATER[case]
-    with pytest.raises(NotPortedError, match=f"ROADMAP queue 1 {items}"):
-        SearchPlan(str(tmp_path), config=config, cli_config=cli).run_plan()
-    assert recorded["port"] == []
+@pytest.mark.parametrize("case", TRANSFER)
+def test_transfer_plan_forwards_its_models_and_tolerances_as_jax(tmp_path, monkeypatch, case):
+    """The transfer step first, in ``transfer/`` with ``TRANSFER_EXTRA``;
+    its optimized tolerances and, where it wrote ``models.pkl``, its model
+    directory as ``peptdeep_model_path`` go to every later step, the MBR
+    step's merged with the library step's tolerances: each package's
+    ``run_step`` recorded, the steps' outputs written by the recording
+    where the case has them."""
+    config, cli, outputs = TRANSFER[case]
+    calls = {"port": [], "jax": []}
+
+    def recorder(key):
+        def run_step(self, d, e):
+            calls[key].append((str(d), e))
+            d.mkdir(parents=True, exist_ok=True)
+            for name in outputs:
+                if name == "stat.tsv":
+                    stats = STATS["medians"] if d.name == "transfer" else STATS["even_count"]
+                    pd.DataFrame(stats).to_csv(d / name, sep="\t", index=False)
+                elif name == "models.pkl" and d.name == "transfer":
+                    (d / "peptdeep.transfer").mkdir(exist_ok=True)
+                    (d / "peptdeep.transfer" / name).write_bytes(b"")
+                elif name == "speclib.mbr.hdf" and d.name == "library":
+                    (d / name).write_bytes(b"")
+
+        return run_step
+
+    monkeypatch.setattr(SearchPlan, "run_step", recorder("port"))
+    monkeypatch.setattr(JaxSearchPlan, "run_step", recorder("jax"))
+    JaxSearchPlan(str(tmp_path / "jax"), config=config, cli_config=cli).run_plan()
+    SearchPlan(str(tmp_path / "port"), config=config, cli_config=cli).run_plan()
+    port = [(d.replace("/port", "/jax"), repr(e).replace("/port/", "/jax/")) for d, e in calls["port"]]
+    assert port == [(d, repr(e)) for d, e in calls["jax"]]
+    steps = [d for d, _ in calls["port"]]
+    mbr = "mbr_step_enabled" in repr((config, cli))
+    want = [tmp_path / "port" / "transfer", *([tmp_path / "port" / "library"] if mbr else []), tmp_path / "port"]
+    assert steps == [str(d) for d in want]
+    assert calls["port"][0][1] == TRANSFER_EXTRA
+    for _, extra in calls["port"][1:]:
+        model = extra.get("library_prediction", {}).get("peptdeep_model_path")
+        assert (model == str(tmp_path / "port" / "transfer" / "peptdeep.transfer")) == ("models.pkl" in outputs)
+        assert ("target_ms2_tolerance" in extra.get("search", {})) == ("stat.tsv" in outputs)
 
 
 STATS = {
@@ -145,16 +184,16 @@ def test_search_step_ends_with_the_cross_run_outputs(tmp_path, monkeypatch):
     monkeypatch.setattr(SearchStep, "_process_raw_file", lambda self, path, name, q: processed.append(name))
 
     class Output:
-        def __init__(self, config, folder):
-            self.folder = folder
+        def __init__(self, config, folder, device=None):
+            self.folder, self.device = folder, device
 
         def build(self, folders, library):
-            built.append(([str(f) for f in folders], library, str(self.folder)))
+            built.append(([str(f) for f in folders], library, str(self.folder), str(self.device)))
 
     monkeypatch.setattr(port_step, "SearchPlanOutput", Output)
     SearchStep(str(tmp_path), config={"raw_paths": ["x/a.mzML", "y/b.mzML"]}, device="cpu").run()
     assert processed == ["a", "b"]
-    assert built == [([str(tmp_path / "quant" / "a"), str(tmp_path / "quant" / "b")], "library", str(tmp_path))]
+    assert built == [([str(tmp_path / "quant" / "a"), str(tmp_path / "quant" / "b")], "library", str(tmp_path), "cpu")]
 
     # fail_fast: the error comes before the aggregation
     def boom(self, path, name, q):

@@ -4,7 +4,8 @@
   and ``frozen_config.yaml`` (``yaml.safe_load`` of the port's file equals
   the JAX package's), ``reuse_quant``, errors collected without
   ``fail_fast``, ``fail_fast`` raising, a shared quant directory.
-- Each setting whose code comes with a later slice raises, naming it.
+- Several hosts raise, naming their slice; ``general.profile_directory``
+  writes a trace a raw file, and ``transfer_learning.enabled`` runs.
 - ``general.save_library`` / ``save_flat_library`` write ``speclib.hdf`` /
   ``speclib.flat.hdf`` that both packages read equal to each other's; a
   base or flat HDF library as ``library_path`` gives JAX's flat library.
@@ -157,9 +158,8 @@ def test_a_raw_file_that_fails_is_collected(tmp_path, monkeypatch):
 # what comes with later slices
 # ---------------------------------------------------------------------------
 LATER = {
-    "profile_directory": ({"general": {"profile_directory": "/tmp/prof"}}, "profiling slice"),
-    "transfer_library": ({"transfer_library": {"enabled": True}, "transfer_learning": {"enabled": True}},
-                         "transfer-learning slice"),
+    "profile_directory": {"general": {"profile_directory": "prof"}},
+    "transfer_library": {"transfer_library": {"enabled": True}, "transfer_learning": {"enabled": True, "epochs": 2}},
 }
 
 
@@ -170,13 +170,27 @@ def small_inputs(tmp_path_factory):
 
 
 @pytest.mark.parametrize("case", sorted(LATER))
-def test_later_slices_raise_naming_their_slice(tmp_path, small_inputs, case):
-    cfg, slice_name = LATER[case]
-    cfg = {"library_path": str(small_inputs[1]), "raw_paths": [str(small_inputs[0])], **cfg}
+def test_profile_directory_and_transfer_learning_run(tmp_path, small_inputs, case):
+    """``general.profile_directory`` writes a trace of the raw file's three
+    workflow stages, named by their phases; ``transfer_learning.enabled``
+    searches, writes the transfer library's run files and, where a library
+    passed the MS2 QC, the fine-tuned models with their stats."""
+    cfg = {"library_path": str(small_inputs[1]), "raw_paths": [str(small_inputs[0])], **LATER[case]}
+    if case == "profile_directory":
+        cfg["general"] = {"profile_directory": str(tmp_path / "prof")}
     s = step(tmp_path, config=cfg)
-    with pytest.raises((NotPortedError, ValueError), match=slice_name):
-        s.run()
-    assert not (tmp_path / QUANT_FOLDER_NAME).exists()
+    s.run()
+    run = small_inputs[0].stem
+    assert not s.errors and (tmp_path / QUANT_FOLDER_NAME / run / "psm.parquet").exists()
+    if case == "profile_directory":
+        trace = (tmp_path / "prof" / run / "trace.json").read_text()
+        for phase in ("load", "optimization", "extraction"):
+            assert f'"alphadia_torch.{phase}"' in trace
+        return
+    assert (tmp_path / QUANT_FOLDER_NAME / run / "frag.transfer.parquet").exists()
+    library = (tmp_path / "speclib.transfer.parquet").exists()
+    assert (tmp_path / "peptdeep.transfer" / "models.pkl").exists() == library
+    assert (tmp_path / "stats.transfer.tsv").exists() == library
 
 
 def assert_same_frames(jax_frame, port_frame, where=""):

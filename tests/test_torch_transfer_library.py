@@ -11,10 +11,14 @@ CPU.
 - ``accumulate_transfer_library`` of both packages on each package's run
   folders: the same rows, integer and text columns exactly, floats within
   1e-6; ``build_run_speclib`` too;
+- on a physics world where no window overflows its slab, both packages'
+  step give the same transfer library (Jaccard >= 0.97, sizes within 2%)
+  and the models tuned on it the same metrics (rtol 1e-3, atol 5e-4);
 - the step's data decision: a requant that quantifies fewer fragments than
   the scored set keeps the scored set with a warning; an error in the
-  requant is the run's error (no fallback); ``transfer_learning.enabled``
-  raises ``NotPortedError`` before any file is searched.
+  requant is the run's error (no fallback); with
+  ``transfer_learning.enabled`` the models are fine-tuned on the step's
+  transfer library, with JAX's stats columns and model keys.
 """
 
 import logging
@@ -123,6 +127,59 @@ def test_build_run_speclib_and_an_empty_folder_list_match_jax(steps, tmp_path):
     assert accumulate_transfer_library([tmp_path / "nothing"]) == ({}, {})
 
 
+# a physics world whose densest cell holds 205 peaks over the whole run (8
+# isolation windows spread the y1 ions of K and R that pile into one coarse
+# bin with fewer): no window of any launch, search or transfer requant (which
+# reads at ScoringConfig's default slab of 256 in both packages, whatever
+# tpu.gather_slab says), can overflow its slab
+NO_OVERFLOW_WORLD = dict(n_windows=8, n_cycles=200, noise_peaks_per_spectrum=10, seed=5, detectable_fraction=0.9)
+
+
+def test_the_packages_agree_where_no_window_overflows(tmp_path):
+    """Where no window overflows its slab, the port's transfer library is
+    JAX's: both packages' step with the transfer library on a small physics
+    world give the same transfer PSMs (sequence and charge; equal at random
+    states 0 and 3 when this was written), and the models tuned on it the
+    same metrics. On the 20-protein physics world,
+    whose windows overflow, the port reads 3-4% above JAX at the default
+    slab (ROADMAP §3)."""
+    import alphadia_torch.search_step as port_step
+    import alphadia_tpu.search_step as jax_step
+    from alphadia_torch.rawdata import DiaData
+    from alphadia_torch.rawdata.mzml import read_mzml
+    from alphadia_torch.utils.parquet import read_parquet
+    from alphadia_torch.utils.tsv import read_tsv
+    from torch_workflow_worlds import REQUANT_FASTA, transfer_readings, write_transfer_inputs
+
+    fasta = tmp_path / "physics.fasta"
+    fasta.write_text(REQUANT_FASTA)
+    lib, raws, _, _, _ = write_transfer_inputs(tmp_path, world=NO_OVERFLOW_WORLD, fasta=fasta, missed_cleavages=1)
+    for raw in raws:
+        cs = DiaData.from_spectra(read_mzml(raw)).cell_start.astype(np.int64)
+        assert (cs[..., -1] - cs[..., 0]).max() <= 256  # no window of any length overflows
+    cfg = {**STEP_CONFIG, "library_path": str(lib), "raw_paths": [str(r) for r in raws],
+           "transfer_learning": {"enabled": True, "epochs": 5, "batch_size": 64}}
+    got = {}
+    for who, make in (("jax", lambda o: jax_step.SearchStep(str(o), config=cfg)),
+                      ("port", lambda o: port_step.SearchStep(str(o), config=cfg, device="cpu"))):
+        step = make(tmp_path / who)
+        step.run()
+        assert not step.errors, (who, step.errors)
+        psm = read_parquet(tmp_path / who / "speclib.transfer.parquet")
+        got[who] = (transfer_readings(tmp_path / who), set(zip(psm["sequence"].tolist(), psm["charge"].tolist())),
+                    read_tsv(tmp_path / who / "stats.transfer.tsv"))
+    (want, a, want_stats), (ours, b, our_stats) = got["jax"], got["port"]
+    assert want["transfer_psms"] > 100
+    assert len(a & b) / len(a | b) >= 0.97
+    for k in ("transfer_psms", "transfer_precursors", "transfer_fragments"):
+        assert abs(ours[k] - want[k]) <= 0.02 * want[k], k
+    # the models tuned on it: JAX's metrics at the fits' tolerance (tests/test_torch_finetune.py: rtol
+    # 1e-3), with atol 5e-4 for values near 0 (five epochs leave the RT R² at 0.17; 2.2e-4 apart)
+    assert list(our_stats) == list(want_stats)
+    for k in want_stats:
+        np.testing.assert_allclose(our_stats[k], want_stats[k], rtol=1e-3, atol=5e-4, err_msg=k)
+
+
 # ---------------------------------------------------------------------------
 # the step's decisions
 # ---------------------------------------------------------------------------
@@ -214,10 +271,33 @@ def test_an_error_in_the_requant_is_the_runs_error(tmp_path, small_inputs, extra
     assert not list((tmp_path / "out" / "quant" / small_inputs[0].stem).glob("*.parquet"))
 
 
-def test_transfer_learning_raises_before_any_file_is_searched(tmp_path, small_inputs):
-    from alphadia_torch.exceptions import NotPortedError
+def test_transfer_learning_fine_tunes_on_the_steps_transfer_library(tmp_path, steps):
+    """With ``transfer_learning.enabled`` the outputs fine-tune the models
+    on the transfer library of the port's step: both packages'
+    ``_build_transfer_library`` + ``_build_transfer_model`` on the port's run
+    folders write the same stats columns and model keys (no mobility, so no
+    ``ccs``), and the saved models predict."""
+    from alphadia_torch.models.finetune import FinetuneManager
+    from alphadia_torch.outputs.search_plan_output import SearchPlanOutput
+    from alphadia_torch.utils.tsv import read_tsv
+    from alphadia_tpu.outputs.search_plan_output import SearchPlanOutput as JaxSearchPlanOutput
 
-    step = _port_step(tmp_path, small_inputs, transfer_learning={"enabled": True})
-    with pytest.raises(NotPortedError, match="ROADMAP queue 1 item 6"):
-        step.run()
-    assert not (tmp_path / "out" / "quant").exists()
+    out, raws = steps
+    folders = [out["port"] / "quant" / r.stem for r in raws]
+    config = {
+        "transfer_library": {"enabled": True, "top_k_samples": 3, "precursor_correlation_cutoff": 0.5,
+                             "fragment_correlation_ratio": 0.75, "norm_delta_max": True},
+        "transfer_learning": {"enabled": True, "epochs": 3, "batch_size": 64},
+    }
+    stats = {}
+    for who, make in (("jax", lambda o: JaxSearchPlanOutput(config, o)),
+                      ("port", lambda o: SearchPlanOutput(config, o, device="cpu"))):
+        (tmp_path / who).mkdir()
+        spo = make(tmp_path / who)
+        spo._build_transfer_model(*spo._build_transfer_library(folders))
+        stats[who] = read_tsv(tmp_path / who / "stats.transfer.tsv")
+    assert list(stats["port"]) == list(stats["jax"])
+    assert {"rt_r2", "rt_abs_error_95", "charge_accuracy", "ms2_spectral_angle"} <= set(stats["port"])
+    models = FinetuneManager.load(tmp_path / "port" / "peptdeep.transfer", device="cpu")
+    assert sorted(models.variables) == ["charge", "ms2", "rt"]
+    assert np.isfinite(models.predict_rt(["PEPTIDEK", "LVNEVTEFAK"])).all()

@@ -873,3 +873,79 @@ def same_spectra(a, b) -> bool:
         if x is not None and (x.dtype != y.dtype or not np.array_equal(x, y)):
             return False
     return True
+
+
+# phase [14] of ``chip_smoke.py``: the three-step plan (transfer step ->
+# library step -> MBR step) library-free on the physics world's FASTA and
+# two runs (``write_transfer_inputs``), the transfer step predicting with the
+# packaged models and the later steps with the ones it tuned
+def multistep_argv(out, raws, fasta, state: int, profile_dir=None, mbr: bool = True) -> list:
+    import json
+
+    cfg = {"general": {"random_state": state, "save_figures": False, "transfer_step_enabled": True,
+                       "mbr_step_enabled": mbr}, "library_prediction": {"enabled": True}}
+    argv = ["-o", str(out), *[a for r in raws for a in ("-f", str(r))], "--fasta", str(fasta),
+            "--config-dict", json.dumps(cfg)]
+    return argv + (["--profile-dir", str(profile_dir)] if profile_dir else [])
+
+
+def physics_truth(planted) -> dict:
+    """``library_run_truth`` of the physics world's runs (both plant the
+    same precursors: only their acquisition seeds differ)."""
+    from alphadia_torch.testing.synthetic import SyntheticConfig
+
+    cfg = SyntheticConfig(**{k: v for k, v in PHYSICS_WORLD.items() if k not in ("n_proteins", "fasta_seed")})
+    return library_run_truth(planted.precursor_df, cfg)
+
+
+def planted_shares(psm: dict, truth: dict, cycle_rt, fdr: float = 0.01) -> tuple[float, float]:
+    """(identified, false) of a run's PSMs as ``library_free_readings``
+    reads them: planted targets with a target PSM at q <= fdr, by sequence,
+    mods and charge; accepted targets not planted or more than 3 cycles from
+    their apex."""
+    import numpy as np
+
+    sel = (psm["qval"] <= fdr) & (psm["decoy"] == 0)
+    row = {(str(s), str(m), int(z)): i for i, (s, m, z) in enumerate(zip(truth["sequence"], truth["mods"], truth["charge"]))}
+    rows = np.array([row.get((str(s), str(m), int(z)), -1) for s, m, z in
+                     zip(psm["sequence"][sel], psm["mods"][sel], psm["charge"][sel])], np.int64)
+    known = rows >= 0
+    planted = truth["_truth_detectable"]
+    det = np.nonzero(planted)[0]
+    truth_cycle = np.abs(cycle_rt[None, :] - truth["_truth_rt"][rows[known]][:, None]).argmin(1)
+    false = np.ones(len(rows), bool)
+    false[known] = ~planted[rows[known]] | (np.abs(psm["frame_center"][sel][known] - truth_cycle) > 3)
+    return float(np.isin(det, rows).mean()), float(false.mean()) if len(false) else 0.0
+
+
+def multistep_readings(out, truth: dict, cycle_rts: list) -> dict:
+    """What phase [14] gates, from the plan's output folder (either
+    package's): the transfer library's PSMs and precursors; the fitted
+    models' RT R², RT 95th-percentile error, charge accuracy and MS2 spectral
+    angle (``stats.transfer.tsv``); per step (library, MBR) and run the
+    identified and false shares and the protein groups; the MBR library's
+    precursors."""
+    from pathlib import Path
+
+    import numpy as np
+
+    from alphadia_torch.library.loader import load_speclib_hdf
+    from alphadia_torch.utils.parquet import read_parquet
+    from alphadia_torch.utils.tsv import read_tsv
+
+    out = Path(out)
+    r = {}
+    psm = read_parquet(out / "transfer" / "speclib.transfer.parquet")
+    r["transfer_psms"] = int(len(psm["precursor_idx"]))
+    r["transfer_precursors"] = int(len(np.unique(psm["mod_seq_charge_hash"])))
+    stats = read_tsv(out / "transfer" / "stats.transfer.tsv")
+    for k in ("rt_r2", "rt_abs_error_95", "charge_accuracy", "ms2_spectral_angle"):
+        r[k] = float(stats[k][0])
+    for step, d in (("library", out / "library"), ("mbr", out)):
+        for i, cycle_rt in enumerate(cycle_rts):
+            run = read_parquet(d / "quant" / f"run_{i}" / "psm.parquet")
+            r[f"{step}_identified_run_{i}"], r[f"{step}_false_run_{i}"] = planted_shares(run, truth, cycle_rt)
+        prec = read_parquet(d / "precursors.parquet")
+        r[f"{step}_protein_groups"] = len(set(prec["pg.name"][prec["precursor.decoy"] == 0].tolist()))
+    r["mbr_library_precursors"] = len(load_speclib_hdf(out / "library" / "speclib.mbr.hdf").precursor_df["precursor_idx"])
+    return r
