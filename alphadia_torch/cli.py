@@ -6,12 +6,17 @@ The JAX package's flags and aliases (``--config`` YAML, repeated
 ``--quant-dir``, ``-o``), then a ``SearchPlan`` on the card. The YAML is
 read by ``config/yaml_subset.load`` (no yaml package on the card machine).
 ``ALPHADIA_TORCH_DEVICE`` (``cpu`` / ``cuda``) picks the device; without it
-the search runs on the card and stops where there is none.
+the search runs on this process's cards and stops where there is none.
+Under ``torchrun`` (or the JAX package's ``ALPHADIA_TPU_COORDINATOR`` /
+``_NUM_PROCESSES`` / ``_PROCESS_ID``) every process runs this command with
+the same flags: each searches its share of the raw files into the shared
+``--quant-dir`` on its own cards, and process 0 writes the cross-run
+outputs (``parallel/distributed``).
 ``--profile-dir DIR`` sets ``general.profile_directory``: a profiler trace
 of each raw file in ``DIR/<raw name>/trace.json``.
 
-Exit codes: 127 a user error (``NotPortedError`` among them), 126 a
-business error, 1 anything else.
+Exit codes: 127 a user error, 126 a business error, 1 anything else; each
+process of a group exits with its own.
 """
 
 from __future__ import annotations
@@ -99,13 +104,15 @@ def _get_cli_config(args, config: dict) -> dict:
 
 
 def _device():
+    """``"cpu"``, or None for this process's cards (checked to exist)."""
     name = os.environ.get(DEVICE_ENV)
     if name not in (None, "", "cpu", "cuda"):
         raise UserError(f"{DEVICE_ENV}={name!r}: the device is 'cpu' or 'cuda'")
     try:
-        return resolve_device(name or None)
+        resolve_device(name or None)
     except RuntimeError as e:
         raise UserError(f"{e} (set {DEVICE_ENV}=cpu)") from e
+    return "cpu" if name == "cpu" else None
 
 
 def run(argv: list[str] | None = None) -> None:

@@ -38,9 +38,9 @@ def diadata_from_jax(dia) -> DiaData:
 
 
 # fields of the JAX configs that only steer how the JAX drivers move data
-# (the Pallas switch, the device mesh, device-time instrumentation, the
-# light download of the calibration loop): the port has no place for them
-TRANSPORT_FIELDS = ("use_pallas", "mesh_devices", "bench_device_time", "transport_quant")
+# (the Pallas switch, device-time instrumentation, the light download of the
+# calibration loop): the port has no place for them
+TRANSPORT_FIELDS = ("use_pallas", "bench_device_time", "transport_quant")
 
 
 def config_from_jax(cfg):

@@ -315,7 +315,10 @@ class BinaryClassifier:
         torch.cuda.current_stream(dev).wait_stream(stream)
         graph = torch.cuda.CUDAGraph()
         opt.zero_grad()
-        with torch.cuda.graph(graph):
+        # captured on the warm-up's stream, which lies on ``dev``: the
+        # default capture stream lies on whatever device was current when
+        # it was first made
+        with torch.cuda.graph(graph, stream=stream):
             loss = step()
         for i in range(eager, len(flat)):
             load(flat[i])

@@ -194,22 +194,25 @@ def extract_xic_cuda(
     out_mz = torch.empty((B, Q, W), dtype=torch.float32, device=dev) if with_mz else None
     tol = np.float32(tol_ppm) * np.float32(1e-6)
     lib = _library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.xic_launch(
-        peaks.data_ptr(), cycle.data_ptr(),
-        scanbin.data_ptr() if scan_lo is not None else None,
-        n_peaks,
-        cell_start.data_ptr(), cell_start.shape[2],
-        cell_start.shape[0], n_bins, n_cycles,
-        slot_idx.data_ptr(), query_mz.data_ptr(), cycle_start.data_ptr(),
-        scan_lo.data_ptr() if scan_lo is not None else None,
-        scan_hi.data_ptr() if scan_hi is not None else None,
-        B, Q, W, slab, cycle_stride.bit_length() - 1,
-        float(np.float32(1.0) - tol), float(np.float32(1.0) + tol),
-        float(np.float32(bin_mz_min)), float(np.float32(bin_width)),
-        int(with_mz), int(mz_as_delta),
-        out_int.data_ptr(), out_mz.data_ptr() if with_mz else None, stream,
-    )
+    # the launch, cudaGetDevice and cudaFuncSetAttribute inside it act on
+    # the current device: make it the tensors' card
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.xic_launch(
+            peaks.data_ptr(), cycle.data_ptr(),
+            scanbin.data_ptr() if scan_lo is not None else None,
+            n_peaks,
+            cell_start.data_ptr(), cell_start.shape[2],
+            cell_start.shape[0], n_bins, n_cycles,
+            slot_idx.data_ptr(), query_mz.data_ptr(), cycle_start.data_ptr(),
+            scan_lo.data_ptr() if scan_lo is not None else None,
+            scan_hi.data_ptr() if scan_hi is not None else None,
+            B, Q, W, slab, cycle_stride.bit_length() - 1,
+            float(np.float32(1.0) - tol), float(np.float32(1.0) + tol),
+            float(np.float32(bin_mz_min)), float(np.float32(bin_width)),
+            int(with_mz), int(mz_as_delta),
+            out_int.data_ptr(), out_mz.data_ptr() if with_mz else None, stream,
+        )
     if err != 0:
         raise RuntimeError(f"xic kernel launch failed: CUDA error {err}")
     launches += 1

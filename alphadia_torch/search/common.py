@@ -33,29 +33,62 @@ def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.pin_memory().to(device, non_blocking=True)
 
 
-def to_host_async(tensors: dict) -> tuple[dict, torch.cuda.Event | None]:
+def to_host_async(tensors: dict) -> tuple[dict, list]:
     """Start the copy of each tensor to the host without waiting for it: on
     the card into pinned buffers with ``non_blocking`` copies, then an event
-    on the current stream; CPU tensors are returned as they are. Read the
-    buffers through :func:`host_arrays` only."""
-    if next(iter(tensors.values())).device.type != "cuda":
-        return tensors, None
+    on the stream of each card that the tensors lie on (the copies run on
+    the source card's current stream, which need not be the current
+    device's); CPU tensors are returned as they are. Read the buffers
+    through :func:`host_arrays` only."""
+    devices = {t.device for t in tensors.values() if t.device.type == "cuda"}
+    if not devices:
+        return tensors, []
     out = {}
     for k, t in tensors.items():
         out[k] = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
         out[k].copy_(t, non_blocking=True)
-    event = torch.cuda.Event()
-    event.record()
-    return out, event
+    events = []
+    for device in devices:
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(device))
+        events.append(event)
+    return out, events
 
 
-def host_arrays(pending: tuple[dict, torch.cuda.Event | None]) -> dict:
+def host_arrays(pending: tuple[dict, list]) -> dict:
     """Wait for the copies that :func:`to_host_async` started (only those)
     and return them as numpy arrays."""
-    tensors, event = pending
-    if event is not None:
+    tensors, events = pending
+    for event in events:
         event.synchronize()
     return {k: v.numpy() for k, v in tensors.items()}
+
+
+def host_rows(pendings: list, n_rows: int) -> dict:
+    """The arrays of row shards' pending copies (:func:`to_host_async`), in
+    shard order, concatenated and cut to the first ``n_rows`` rows."""
+    parts = [host_arrays(p) for p in pendings]
+    if len(parts) == 1:
+        return {k: v[:n_rows] for k, v in parts[0].items()}
+    return {k: np.concatenate([p[k] for p in parts])[:n_rows] for k in parts[0]}
+
+
+def data_parallel_devices(mesh_devices, batch_size: int, devices=None) -> list[torch.device] | None:
+    """The devices that the drivers split every batch across, or None for
+    one device: ``devices`` (default: this process's local cards,
+    ``parallel.distributed.local_devices``), the first ``mesh_devices`` of
+    them where that is set (``tpu.mesh_devices``); None when fewer than two
+    are left or ``batch_size`` does not split evenly across them (the JAX
+    package's ``data_parallel_mesh``)."""
+    from alphadia_torch.parallel.mesh import make_mesh
+
+    devices = make_mesh(devices=devices)
+    n = len(devices)
+    if mesh_devices:
+        n = min(n, int(mesh_devices))
+    if n <= 1 or batch_size % n:
+        return None
+    return devices[:n]
 
 
 def first_k_true(mask: np.ndarray, k: int) -> np.ndarray:

@@ -20,8 +20,9 @@ each chunk's window bucket W only pads the candidates' extents (scoring
 reads every XIC from the candidate's first cycle, so the peaks that a full
 slab keeps do not depend on W either: ``ops/scoring``).
 
-The JAX driver's device-mesh branch has no counterpart on one card: the
-multi-GPU module will carry it.
+With several devices (either driver's ``_mesh()``) the two drivers run
+one after the other, each splitting its batches across the devices, as the
+JAX driver falls back under a device mesh.
 """
 
 from __future__ import annotations
@@ -72,6 +73,7 @@ class PipelinedExtraction:
         fragment_mz_column: str = "mz_library",
         sel_batch_cap: int = 4096,
         device=None,
+        devices=None,
     ):
         sel_config = sel_config or SelectionConfig()
         # smaller selection batches bring the first candidates (and the
@@ -83,6 +85,7 @@ class PipelinedExtraction:
             precursor_mz_column=precursor_mz_column,
             fragment_mz_column=fragment_mz_column,
             device=device,
+            devices=devices,
         )
         self.selection = CandidateSelection(dia_data, precursor, fragment, sel_config, **kw)
         self.scoring = CandidateScoring(dia_data, precursor, fragment, score_config, **kw)
@@ -90,6 +93,11 @@ class PipelinedExtraction:
     def __call__(self) -> tuple[dict, dict, dict]:
         sel = self.selection
         score = self.scoring
+        if sel._mesh() is not None or score._mesh() is not None:
+            cand = sel()
+            psm, fragments = score(cand)
+            return cand, psm, fragments
+
         t_start = time.perf_counter()
         state = sel._submit()
         if state is None:  # empty library
@@ -106,8 +114,7 @@ class PipelinedExtraction:
         buffered = 0
         pending = []
         def dispatch(geo: dict, a: int, b: int):
-            chunk = score._geo_chunk(geo, a, b)
-            pending.append(score._dispatch_chunk(dev, lib_dev, chunk, window_bucket(geo, a, b)))
+            pending.append(score._dispatch([score.device], [dev], [lib_dev], geo, a, b, window_bucket(geo, a, b)))
 
         for _, frame in sel._harvest_iter(state):
             if not len(frame["precursor_idx"]):

@@ -10,8 +10,12 @@ window, the batch is capped at 4096, and the scan centre of mass and the
 window's width become ``mobility_observed`` and ``base_width_mobility``.
 
 Each chunk of candidates is enqueued with its copies to pinned host
-buffers (``_dispatch_chunk``) before any is read back (``_harvest``), so
-the host never waits for one chunk before enqueuing the next.
+buffers (``_dispatch``) before any is read back (``_harvest``), so the host
+never waits for one chunk before enqueuing the next. With several devices
+(``devices`` and ``ScoringConfig.mesh_devices``) the library arrays and the
+peak store are uploaded once to each, and every chunk is cut into equal
+row shards, one per device, each scored on its own device
+(``parallel.shard_ops.run_on_devices``); the PSMs equal one device's.
 """
 
 from __future__ import annotations
@@ -23,10 +27,13 @@ import numpy as np
 
 from alphadia_torch.constants.settings import MASS_NEUTRON_AVG
 from alphadia_torch.ops.scoring import round_transport, score_candidates_batch
+from alphadia_torch.parallel.mesh import pad_to_multiple, shard_bounds
+from alphadia_torch.parallel.shard_ops import run_on_devices
 from alphadia_torch.rawdata.diadata import DiaData
 from alphadia_torch.search.common import (
     assign_observation_slots,
-    host_arrays,
+    data_parallel_devices,
+    host_rows,
     to_device,
     to_host_async,
     top_k_fragment_order,
@@ -118,6 +125,8 @@ class ScoringConfig:
     # 'bfloat16' runs the dense intensity chains in bfloat16; m/z and
     # mass-error math stays float32 either way
     compute_dtype: str = "float32"
+    # cap on the devices that each chunk is split across (tpu.mesh_devices)
+    mesh_devices: int | None = None
 
 
 def empty_psms() -> dict:
@@ -139,6 +148,7 @@ class CandidateScoring:
         precursor_mz_column: str = "mz_library",
         fragment_mz_column: str = "mz_library",
         device=None,
+        devices=None,
     ):
         self.dia = dia_data
         self.precursor = precursor
@@ -147,7 +157,9 @@ class CandidateScoring:
         self.rt_column = rt_column
         self.precursor_mz_column = precursor_mz_column
         self.fragment_mz_column = fragment_mz_column
-        self.device = resolve_device(device)
+        # ``devices``: the devices a chunk may be split across (default: the one device)
+        self.devices = [resolve_device(d) for d in devices] if devices else [resolve_device(device)]
+        self.device = self.devices[0]
         self._lib_arrays: dict | None = None
         self._row_order: tuple | None = None
 
@@ -223,16 +235,21 @@ class CandidateScoring:
             return min(self.config.batch_size, 4096)
         return self.config.batch_size
 
-    def _upload_lib(self) -> tuple[dict, dict]:
-        """Upload the per-precursor library arrays once, without waiting.
-        Returns ``(lib_host, lib_dev)``."""
+    def _mesh(self) -> list | None:
+        """The devices each chunk is split across, or None for one."""
+        return data_parallel_devices(self.config.mesh_devices, self.config.batch_size, self.devices)
+
+    def _upload_lib(self, device=None) -> tuple[dict, dict]:
+        """Upload the per-precursor library arrays once to ``device``
+        (default: the driver's), without waiting. Returns ``(lib_host,
+        lib_dev)``."""
         lib = self._library_arrays()
         lib_dev = {}
         for k in LIB_KEYS:
             a = lib[k]
             if k in _F16_KEYS and (not a.size or max(-float(a.min()), float(a.max())) <= 60000.0):
                 a = a.astype(np.float16).astype(np.float32)
-            lib_dev[k] = to_device(a, self.device)
+            lib_dev[k] = to_device(a, self.device if device is None else device)
         return lib, lib_dev
 
     def _row_of(self, precursor_idx: np.ndarray) -> np.ndarray:
@@ -280,13 +297,28 @@ class CandidateScoring:
         """The geometry of candidates [b0, b1)."""
         return {k: geo[k][b0:b1] for k in GEO_KEYS}
 
+    def _dispatch(self, devices: list, devs: list, lib_devs: list, geo: dict, a: int, b: int, W: int):
+        """Enqueue the scoring of candidates [a, b) with window bucket ``W``
+        (feature values do not depend on it): their geometry cut into one
+        equal row shard per device, each scored on its device against that
+        device's peak store and library arrays. Returns ``(b - a, the
+        shards' pending copies)`` for :meth:`_harvest`."""
+        chunk = {k: pad_to_multiple(v, len(devices)) for k, v in self._geo_chunk(geo, a, b).items()}
+        bounds = shard_bounds(len(chunk["rows"]), len(devices))
+        return b - a, run_on_devices(
+            devices,
+            lambda i, _device: self._dispatch_chunk(
+                devs[i], lib_devs[i], {k: v[bounds[i][0]:bounds[i][1]] for k, v in chunk.items()}, W
+            ),
+        )
+
     def _dispatch_chunk(self, dev: dict, lib_dev: dict, chunk: dict, W: int):
-        """Enqueue the scoring of one geometry chunk with window bucket ``W``
-        (feature values do not depend on it) and the copies of its outputs
-        to the host. Returns the pending copies for :meth:`_harvest`."""
+        """Enqueue the scoring of one geometry chunk on the device that
+        ``dev`` lies on and the copies of its outputs to the host; returns
+        the pending copies."""
         cfg = self.config
         dia = self.dia
-        gd = {k: to_device(v, self.device) for k, v in chunk.items()}
+        gd = {k: to_device(v, dev["cell_start"].device) for k, v in chunk.items()}
         g = {k: v.index_select(0, gd["rows"]) for k, v in lib_dev.items()}
         features, valid, frag_out = score_candidates_batch(
             dev["peak_store"], dev["cell_start"], dev["cycle_rt"],
@@ -315,8 +347,8 @@ class CandidateScoring:
     def _harvest(self, pending: list, cand: dict, lib: dict, geo: dict) -> tuple[dict, dict]:
         """Read the chunks' outputs in dispatch order, each once its own
         copies have landed, and assemble the (psm, fragment) column dicts.
-        ``pending`` covers ``cand`` and ``geo`` in order."""
-        parts = [host_arrays(p) for p in pending]
+        ``pending`` (:meth:`_dispatch`'s) covers ``cand`` and ``geo`` in order."""
+        parts = [host_rows(p, n_rows) for n_rows, p in pending]
         features = np.concatenate([p["features"] for p in parts])
         valid = np.concatenate([p["psm_valid"] for p in parts])
         frag_out = {k: np.concatenate([p[k] for p in parts]) for k in _FRAG_KEEP}
@@ -334,12 +366,14 @@ class CandidateScoring:
         n = len(candidates["precursor_idx"])
         if n == 0:
             return empty_psms(), empty_fragments()
-        lib, lib_dev = self._upload_lib()
+        devices = self._mesh() or [self.device]
+        lib_devs = [self._upload_lib(d)[1] for d in devices]
+        lib = self._library_arrays()
         geo = self._candidate_geometry(candidates)
         W = geo["window_len"]
-        dev = self.dia.device_arrays(1, self.device)
+        devs = [self.dia.device_arrays(1, d) for d in devices]
         pending = [
-            self._dispatch_chunk(dev, lib_dev, self._geo_chunk(geo, b0, min(b0 + bsz, n)), W)
+            self._dispatch(devices, devs, lib_devs, geo, b0, min(b0 + bsz, n), W)
             for b0, bsz in batch_schedule(n, self._batch_cap())
         ]
         psm, fragments = self._harvest(pending, candidates, lib, geo)

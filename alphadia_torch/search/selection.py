@@ -6,6 +6,13 @@ data, ``select_candidates_batch_4d``) over a power-of-two batch schedule on
 the device, and decodes the candidates into a column dict in absolute
 (fine) cycle coordinates and, on 4D data, scan-bin coordinates.
 
+With several devices (``devices`` and ``SelectionConfig.mesh_devices``,
+``search.common.data_parallel_devices``) every device holds the peak store
+and the query arrays, and each batch is cut into equal row shards, one per
+device, each selected on its own device
+(``parallel.shard_ops.run_on_devices``); the shards decode in row order,
+so the candidates equal one device's.
+
 ``_submit`` enqueues every batch without waiting for the device;
 ``_harvest_iter`` decodes the batches in order, each once its own copies
 to the host have landed.
@@ -21,10 +28,12 @@ import numpy as np
 from alphadia_torch.constants.settings import MASS_NEUTRON_AVG
 from alphadia_torch.ops.selection import select_candidates_batch, select_candidates_batch_4d
 from alphadia_torch.ops.smooth import gaussian_kernel_1d, rt_kernel_sigma
+from alphadia_torch.parallel.shard_ops import run_on_devices
 from alphadia_torch.rawdata.diadata import DiaData
 from alphadia_torch.search.common import (
     assign_observation_slots,
-    host_arrays,
+    data_parallel_devices,
+    host_rows,
     to_device,
     to_host_async,
     top_k_fragment_order,
@@ -80,6 +89,8 @@ class SelectionConfig:
     gather_slab: int = 256
     max_ms2_obs: int = 2
     max_ms1_obs: int = 1
+    # cap on the devices that each batch is split across (tpu.mesh_devices)
+    mesh_devices: int | None = None
 
 
 def empty_candidates() -> dict:
@@ -97,6 +108,7 @@ class CandidateSelection:
         precursor_mz_column: str = "mz_library",
         fragment_mz_column: str = "mz_library",
         device=None,
+        devices=None,
     ):
         self.dia = dia_data
         self.precursor = precursor
@@ -105,7 +117,13 @@ class CandidateSelection:
         self.rt_column = rt_column
         self.precursor_mz_column = precursor_mz_column
         self.fragment_mz_column = fragment_mz_column
-        self.device = resolve_device(device)
+        # ``devices``: the devices a batch may be split across (default: the one device)
+        self.devices = [resolve_device(d) for d in devices] if devices else [resolve_device(device)]
+        self.device = self.devices[0]
+
+    def _mesh(self) -> list | None:
+        """The devices each batch is split across, or None for one."""
+        return data_parallel_devices(self.config.mesh_devices, self.config.batch_size, self.devices)
 
     def _window_len(self) -> int:
         """Cycle-window length: twice the RT tolerance, at least
@@ -189,9 +207,12 @@ class CandidateSelection:
         return out
 
     def _submit(self) -> dict | None:
-        """Prepare the query arrays, upload them and enqueue every batch;
-        each batch's outputs go to pinned host buffers by asynchronous
-        copies followed by an event. Nothing here waits for the device.
+        """Prepare the query arrays, upload them once to each device and
+        enqueue every batch: each batch's rows are cut into one equal shard
+        per device (one shard on one device), each selected on its device
+        from a slice of that device's arrays; each shard's outputs go to
+        pinned host buffers by asynchronous copies followed by an event.
+        Nothing here waits for the device.
         Returns the state that :meth:`_harvest_iter` decodes, or None for
         an empty library."""
         cfg = self.config
@@ -209,8 +230,11 @@ class CandidateSelection:
         if cfg.coarsen_wide_windows:
             while W // stride > 512:
                 stride *= 2
-        dev = dia.device_arrays(stride, self.device)
-        n_cycles_dev = dev["n_cycles"]
+        # every device holds the peak store; each takes an equal row shard
+        # of every batch (the padding rows' outputs are dropped)
+        devices = self._mesh() or [self.device]
+        devs = [dia.device_arrays(stride, d) for d in devices]
+        n_cycles_dev = devs[0]["n_cycles"]
         if stride > 1:
             W = bucket_window(max(-(-arrays["window_len"] // stride), 32, cfg.kernel_size))
             arrays["cycle_start"] = np.clip(
@@ -222,7 +246,7 @@ class CandidateSelection:
             )
 
         sigma = rt_kernel_sigma(cfg.fwhm_rt, cfg.sigma_scale_rt, dia.cycle_time * stride)
-        kernel = to_device(gaussian_kernel_1d(cfg.kernel_size, sigma), self.device)
+        kernels = [to_device(gaussian_kernel_1d(cfg.kernel_size, sigma), d) for d in devices]
         # size and tolerance knobs are in cycle units: scale to coarse cells
         min_rt_k = max(1, cfg.min_size_rt // stride)
         max_rt_k = max(min_rt_k + 1, -(-cfg.max_size_rt // stride))
@@ -249,7 +273,7 @@ class CandidateSelection:
             # intermediates are S times the 3D footprint, so cap the batch.
             # The strided cell_start alone coarsens: cells sum `stride` cycles
             select = select_candidates_batch_4d
-            peaks = (dev["peak_mz"], dev["peak_intensity"], dev["peak_scanbin"])
+            peak_keys = ("peak_mz", "peak_intensity", "peak_scanbin")
             cap = min(cfg.batch_size, 4096)
             static_kw.update(
                 n_scan_bins=dia.n_scan_bins,
@@ -260,24 +284,35 @@ class CandidateSelection:
             )
         else:
             select = select_candidates_batch
-            peaks = (dev["peak_store"],)
+            peak_keys = ("peak_store",)
             cap = cfg.batch_size
             static_kw.update(cycle_stride=stride)
         keys = ("frag_slot", "frag_mz", "iso_slot", "iso_mz", "cycle_start", "n_valid_fragments")
-        batch_dev = {k: to_device(arrays[k], self.device) for k in keys}
+        # the query arrays go to each device once, and a batch's shard is a
+        # slice of them: shard i of batch [b0, b1) is its i-th run of
+        # ceil((b1 - b0) / n_devices) rows. The zero rows past the last
+        # precursor fill the last shards; rows past a batch are dropped
+        extra = len(devices) - 1
+        padded = {k: np.pad(arrays[k], [(0, extra)] + [(0, 0)] * (arrays[k].ndim - 1)) if extra else arrays[k] for k in keys}
+        batch_devs = [{k: to_device(v, d) for k, v in padded.items()} for d in devices]
+
+        def run(i, b0, size):
+            dev = devs[i]
+            sl = {k: v[b0 + i * size : b0 + (i + 1) * size] for k, v in batch_devs[i].items()}
+            res = select(
+                *(dev[k] for k in peak_keys), dev["cell_start"],
+                sl["frag_slot"], sl["frag_mz"], sl["iso_slot"], sl["iso_mz"],
+                sl["cycle_start"], kernels[i],
+                cfg.fragment_mz_tolerance, cfg.precursor_mz_tolerance,
+                sl["n_valid_fragments"], **static_kw,
+            )
+            return to_host_async(res)
 
         pending = []
         for b0, bsz in batch_schedule(n, cap):
             b1 = min(b0 + bsz, n)
-            sl = {k: v[b0:b1] for k, v in batch_dev.items()}
-            res = select(
-                *peaks, dev["cell_start"],
-                sl["frag_slot"], sl["frag_mz"], sl["iso_slot"], sl["iso_mz"],
-                sl["cycle_start"], kernel,
-                cfg.fragment_mz_tolerance, cfg.precursor_mz_tolerance,
-                sl["n_valid_fragments"], **static_kw,
-            )
-            pending.append((b0, to_host_async(res)))
+            size = -(-(b1 - b0) // len(devices))
+            pending.append((b0, b1 - b0, run_on_devices(devices, lambda i, _device: run(i, b0, size))))
         return {
             "pending": pending,
             "stride": stride,
@@ -296,8 +331,8 @@ class CandidateSelection:
         """Yield ``(b0, candidates)`` per batch in batch order, each as soon
         as its own copies have landed: a consumer (``search/pipelined.py``)
         enqueues scoring while later batches still run."""
-        for b0, pending in state["pending"]:
-            yield b0, self._decode(b0, host_arrays(pending), state["stride"], state["f16_scores"])
+        for b0, n_rows, parts in state["pending"]:
+            yield b0, self._decode(b0, host_rows(parts, n_rows), state["stride"], state["f16_scores"])
 
     def _decode(self, b0: int, r: dict, stride: int, f16_scores: bool) -> dict:
         rows, cands = np.nonzero(r["valid"])

@@ -95,6 +95,7 @@ class RtWindowedSearch:
         pad_s: float | None = None,
         diadata_kwargs: dict | None = None,
         device=None,
+        devices=None,
     ):
         self.spectra = spectra
         self.precursor = precursor
@@ -117,7 +118,9 @@ class RtWindowedSearch:
             self.diadata_kwargs.setdefault(
                 "mobility_range", (float(spectra.mobility.min()), float(spectra.mobility.max()))
             )
-        self.device = resolve_device(device)
+        # the drivers split their batches across ``devices`` (default the one device)
+        self.devices = [resolve_device(d) for d in devices] if devices else [resolve_device(device)]
+        self.device = self.devices[0]
 
     def __call__(self) -> tuple[dict, dict]:
         prec = self.precursor
@@ -133,7 +136,7 @@ class RtWindowedSearch:
             peak_slab_mb = max(peak_slab_mb, slab_mb)
             _, psm, fr = PipelinedExtraction(
                 dia, take(prec, rows), self.fragment, self.sel_config, self.score_config,
-                device=self.device, **self.cols,
+                devices=self.devices, **self.cols,
             )()
             # window-local cycles -> absolute
             for col in ("frame_start", "frame_center", "frame_stop"):

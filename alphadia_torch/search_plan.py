@@ -16,6 +16,12 @@ step and a match-between-runs (MBR) step.
   the output directory with that flat library, from the transfer extras,
   the library step's optimized tolerances and ``MBR_EXTRA``;
 - else one step in the output directory, with the transfer extras.
+
+Several processes (``parallel/distributed``) each run every step in one
+process group, joined by the first step. A step's ``run()`` returns on
+every process only after process 0 has written the step's outputs, so
+each process reads the same ``stat.tsv``, ``models.pkl`` and
+``speclib.mbr.hdf`` for the next step.
 """
 
 from __future__ import annotations

@@ -32,8 +32,21 @@ their FDR, ``stat.tsv``, ``internal.tsv``, the LFQ matrices, and with
 ``transfer_learning.enabled`` the property models fine-tuned on the
 transfer library, on the step's device), on the host; under
 ``general.fail_fast`` a failed raw file's error is raised before it.
-Several hosts, whose code comes with a later slice, raise
-``NotPortedError`` naming it, before any work. The
+
+Several processes (``parallel/distributed``: ``torchrun``'s environment or
+the JAX package's ``ALPHADIA_TPU_*``) each join one group before any work,
+search their slice of the raw files (file i on process i % n) on their own
+cards, and meet at a barrier; process 0 then builds the cross-run outputs
+over every run's folder of the shared quant directory while the others wait
+at a second barrier, so that every process leaves ``run()`` with the step's
+outputs on disk. Under ``general.fail_fast`` a process's error is raised
+after both barriers, so that no peer waits for it. File i draws the i-th
+seed of the step's generator over the whole list of raw paths, on whichever
+process searches it (the JAX package draws once for each file that a
+process searches, so a file's seed there depends on the process and on the
+files reused before it). The batches of a run are split across the
+process's cards (``devices``, at most ``tpu.mesh_devices``); everything else
+runs on its first card, ``device``. The
 multiplexing requant (``PeptideCentricWorkflow.requantify``) has no caller
 here, as in the JAX package: a multiplexed search is the channel library
 searched by the normal path.
@@ -42,15 +55,15 @@ searched by the normal path.
 from __future__ import annotations
 
 import logging
-import os
 import traceback
 from pathlib import Path
 
 import numpy as np
+import torch
 
 from alphadia_torch.config import load_default_config
 from alphadia_torch.constants.keys import SearchStepFiles
-from alphadia_torch.exceptions import CustomError, NoLibraryAvailableError, NotPortedError
+from alphadia_torch.exceptions import CustomError, NoLibraryAvailableError
 from alphadia_torch.library import chem
 from alphadia_torch.library.decoy import DecoyGenerator, generate_flat_decoys
 from alphadia_torch.library.digest import digest_fasta
@@ -62,6 +75,13 @@ from alphadia_torch.library.pipeline import ProcessingPipeline
 from alphadia_torch.library.speclib import SpecLibFlat
 from alphadia_torch.models.prediction import SimplePrediction
 from alphadia_torch.outputs.search_plan_output import SearchPlanOutput
+from alphadia_torch.parallel.distributed import (
+    barrier,
+    initialize_distributed,
+    local_devices,
+    process_index,
+    shard_files_for_host,
+)
 from alphadia_torch.reporting import PROGRESS, init_logging
 from alphadia_torch.utils.device import resolve_device
 from alphadia_torch.utils.frame import n_rows
@@ -82,8 +102,17 @@ class SearchStep:
         extra_config: dict | None = None,
         device=None,
     ):
-        # the card unless the CPU is asked for; raises without a card
-        self.device = resolve_device(device)
+        # this process's cards unless a device is asked for; raises without
+        # a card. The drivers split their batches across ``devices``; the
+        # rest of the step runs on the first of them
+        self.devices = local_devices() if device is None else [resolve_device(device)]
+        self.device = self.devices[0]
+        if self.device.index is not None and self.device.type == "cuda":
+            # the first card is the process's current device: what launches
+            # on the current device (the classifier's CUDA graph, streams)
+            # then runs where the step's tensors lie ("cuda" alone is the
+            # current device already)
+            torch.cuda.set_device(self.device)
         self.output_folder = Path(output_folder)
         self.output_folder.mkdir(parents=True, exist_ok=True)
 
@@ -107,16 +136,10 @@ class SearchStep:
             seed = int(np.random.default_rng().integers(0, 2**31))
             logger.info("Generated random state %d", seed)
         self._np_rng = np.random.default_rng(seed)
+        self._file_seeds: dict[str, int | None] = {}  # raw path -> its seed, drawn in run()
 
         self.spectral_library: SpecLibFlat | None = None
         self.errors: list[tuple[str, str]] = []
-
-    def _refuse_later_slices(self) -> None:
-        if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-            raise NotPortedError(
-                "searching on several hosts or cards comes with the multi-GPU slice of the port "
-                "(ROADMAP queue 1 item 7)"
-            )
 
     def load_library(self) -> SpecLibFlat:
         """The flat library: a transition list, or a FASTA digest when
@@ -190,11 +213,24 @@ class SearchStep:
         return flat
 
     def run(self) -> None:
-        self._refuse_later_slices()
+        # join the group (if several processes run this step) before any
+        # work: a peer that cannot join must stop every process
+        is_distributed = initialize_distributed()
         self.spectral_library = self.load_library()
 
         quant_dir = Path(self.config["quant_directory"] or self.output_folder / QUANT_FOLDER_NAME)
-        for raw_path in list(self.config["raw_paths"] or []):
+        all_files = list(self.config["raw_paths"] or [])
+        # file i's seed is the i-th draw, whichever process searches it
+        seeded = self.config["general"]["random_state"] is not None
+        self._file_seeds = {}
+        for raw_path in all_files:
+            self._file_seeds.setdefault(raw_path, int(self._np_rng.integers(0, 2**31)) if seeded else None)
+        my_files = shard_files_for_host(all_files) if is_distributed else all_files
+        if is_distributed:
+            logger.log(PROGRESS, "distributed: this process searches %d/%d files", len(my_files), len(all_files))
+
+        fail_fast_error: Exception | None = None
+        for raw_path in my_files:
             raw_name = Path(raw_path).stem
             psm_path = quant_dir / raw_name / SearchStepFiles.PSM_FILE_NAME
             if self.config["general"]["reuse_quant"] and psm_path.exists():
@@ -211,15 +247,35 @@ class SearchStep:
                     logger.error("%s failed: %s\n%s", raw_name, e, traceback.format_exc())
                 if self.config["general"]["fail_fast"]:
                     logger.error("fail_fast: skipping remaining raw files")
-                    raise
+                    fail_fast_error = e
+                    break
+        if fail_fast_error is not None and not is_distributed:
+            raise fail_fast_error
 
-        folder_list = [quant_dir / Path(p).stem for p in list(self.config["raw_paths"] or [])]
-        SearchPlanOutput(self.config, self.output_folder, self.device).build(folder_list, self.spectral_library)
+        # the outputs cover every run (each process's quant folders on the
+        # shared filesystem) and are built once, by process 0, after every
+        # process has written its runs
+        folder_list = [quant_dir / Path(p).stem for p in all_files]
+        if is_distributed:
+            barrier("alphadia_torch_quant_done")
+            if process_index() != 0:
+                logger.log(PROGRESS, "distributed: the cross-run outputs are built on process 0")
+                barrier("alphadia_torch_output_done")
+                if fail_fast_error is not None:
+                    raise fail_fast_error
+                return
+        try:
+            SearchPlanOutput(self.config, self.output_folder, self.device).build(folder_list, self.spectral_library)
+        finally:
+            if is_distributed:
+                barrier("alphadia_torch_output_done")
+        if fail_fast_error is not None:
+            raise fail_fast_error
 
     def _process_raw_file(self, raw_path: str, raw_name: str, quant_dir: Path) -> None:
-        per_file_seed = int(self._np_rng.integers(0, 2**31)) if self.config["general"]["random_state"] is not None else None
         workflow = PeptideCentricWorkflow(
-            raw_name, self.config, quant_path=str(quant_dir), random_state=per_file_seed, device=self.device
+            raw_name, self.config, quant_path=str(quant_dir), random_state=self._file_seeds[raw_path],
+            devices=self.devices,
         )
         profile_dir = self.config["general"].get("profile_directory")
         with profile_trace(Path(profile_dir) / raw_name if profile_dir else None):

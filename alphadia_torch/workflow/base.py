@@ -26,11 +26,14 @@ class WorkflowBase:
     OPTIMIZATION_MANAGER_PKL = "optimization_manager.pkl"
     TIMING_MANAGER_PKL = "timing_manager.pkl"
 
-    def __init__(self, instance_name: str, config, quant_path: str | None = None, device=None):
+    def __init__(self, instance_name: str, config, quant_path: str | None = None, device=None, devices=None):
         self.instance_name = instance_name
         self.config = config
-        # the card unless the CPU is asked for; raises without a card
-        self.device = resolve_device(device)
+        # the card unless the CPU is asked for; raises without a card.
+        # ``devices``: the devices that the drivers split their batches
+        # across; the rest of the run (FDR fits, calibration) is on the first
+        self.devices = [resolve_device(d) for d in devices] if devices else [resolve_device(device)]
+        self.device = self.devices[0]
         base = Path(quant_path or Path(config["output_directory"]) / QUANT_FOLDER_NAME)
         self.path = base / instance_name
         self.path.mkdir(parents=True, exist_ok=True)

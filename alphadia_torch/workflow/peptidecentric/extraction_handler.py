@@ -38,15 +38,18 @@ def _resolve_compute_dtype(setting: str, device) -> str:
 
 
 class ExtractionHandler:
-    def __init__(self, config, optimization_manager, column_name_handler, device=None):
+    def __init__(self, config, optimization_manager, column_name_handler, device=None, devices=None):
         self._config = config
         self._om = optimization_manager
         self._cols = column_name_handler
-        self.device = resolve_device(device)
+        # the drivers split their batches across ``devices`` (at most
+        # tpu.mesh_devices of them); default the one device
+        self.devices = [resolve_device(d) for d in devices] if devices else [resolve_device(device)]
+        self.device = self.devices[0]
 
     @classmethod
-    def create_handler(cls, config, optimization_manager, column_name_handler, device=None):
-        return cls(config, optimization_manager, column_name_handler, device=device)
+    def create_handler(cls, config, optimization_manager, column_name_handler, device=None, devices=None):
+        return cls(config, optimization_manager, column_name_handler, device=device, devices=devices)
 
     def _selection_config(self) -> SelectionConfig:
         cfg = self._config
@@ -61,6 +64,7 @@ class ExtractionHandler:
             batch_size=cfg["tpu"]["selection_batch"],
             gather_slab=cfg["tpu"]["gather_slab"],
             coarsen_wide_windows=cfg["tpu"]["coarsen_wide_windows"],
+            mesh_devices=cfg["tpu"]["mesh_devices"],
         )
 
     def _scoring_config(self) -> ScoringConfig:
@@ -78,6 +82,7 @@ class ExtractionHandler:
             quad_sigma=tuple(self._om.quad_sigma),
             quad_delta_mu=tuple(self._om.quad_delta_mu),
             compute_dtype=_resolve_compute_dtype(cfg["tpu"]["compute_dtype"], self.device),
+            mesh_devices=cfg["tpu"]["mesh_devices"],
         )
 
     def _columns(self) -> dict:
@@ -85,7 +90,7 @@ class ExtractionHandler:
             rt_column=self._cols.get_rt_column(),
             precursor_mz_column=self._cols.get_precursor_mz_column(),
             fragment_mz_column=self._cols.get_fragment_mz_column(),
-            device=self.device,
+            devices=self.devices,
         )
 
     def select_candidates(self, dia_data: DiaData, lib, apply_cutoff: bool = False) -> dict:

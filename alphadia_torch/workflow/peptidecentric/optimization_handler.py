@@ -64,14 +64,14 @@ _DEFAULT_AUTOMATIC_ORDER = ["ms2_error", "rt_error", "ms1_error", "mobility_erro
 
 
 class OptimizationHandler:
-    def __init__(self, config, optimization_manager, calibration_manager, fdr_manager, dia_data, library, device=None):
+    def __init__(self, config, optimization_manager, calibration_manager, fdr_manager, dia_data, library, devices=None):
         self._config = config
         self._om = optimization_manager
         self._cm = calibration_manager
         self._fdr_manager = fdr_manager
         self._dia_data = dia_data
         self._optlock = OptimizationLock(library, config)
-        self._device = device
+        self._devices = devices
         self.ordered_optimizers: list[list] = []
         self.step_log: list[dict] = []
         self._step: dict | None = None
@@ -209,7 +209,7 @@ class OptimizationHandler:
             ColumnNameHandler(
                 self._cm, dia_data_has_ms1=self._dia_data.has_ms1, dia_data_has_mobility=self._dia_data.has_mobility
             ),
-            device=self._device,
+            devices=self._devices,
         )
         _, features, fragments = handler.select_and_score(self._dia_data, self._optlock.batch_library)
         rec["extraction_wall"] = time.perf_counter() - t0

@@ -7,8 +7,9 @@ tolerance loop, then the final calibration applied to the whole library),
 configured FDR), and the two requants after it: ``requantify`` (the
 multiplexing handler: the confident PSMs in every channel, channel FDR)
 and ``requantify_fragments`` (the transfer requant over the whole fragment
-space). The device (``None``: the card) is handed down to the drivers and
-the FDR manager.
+space). The device (``None``: the card) is handed down to the FDR manager,
+and the device list (``devices``, default that one device) to the drivers,
+which split their batches across it.
 """
 
 from __future__ import annotations
@@ -55,8 +56,9 @@ class PeptideCentricWorkflow(WorkflowBase):
         quant_path: str | None = None,
         random_state: int | None = None,
         device=None,
+        devices=None,
     ):
-        super().__init__(instance_name, config, quant_path, device=device)
+        super().__init__(instance_name, config, quant_path, device=device, devices=devices)
         self.fdr_manager: FDRManager | None = None
         self.optimization_handler: OptimizationHandler | None = None
         # the per-file seed a search derives from general.random_state
@@ -98,7 +100,7 @@ class PeptideCentricWorkflow(WorkflowBase):
             self.fdr_manager,
             self.dia_data,
             self.spectral_library,
-            device=self.device,
+            devices=self.devices,
         )
 
     @use_timing_manager("optimization")
@@ -119,7 +121,7 @@ class PeptideCentricWorkflow(WorkflowBase):
                 dia_data_has_ms1=self.dia_data.has_ms1,
                 dia_data_has_mobility=self.dia_data.has_mobility,
             ),
-            device=self.device,
+            devices=self.devices,
         )
 
     @use_timing_manager("extraction")
@@ -171,5 +173,5 @@ class PeptideCentricWorkflow(WorkflowBase):
         """The confident PSMs quantified over the whole transfer fragment
         space."""
         return TransferRequantHandler(
-            self.config, self.calibration_manager, self.optimization_manager, device=self.device
+            self.config, self.calibration_manager, self.optimization_manager, devices=self.devices
         ).requantify(self.dia_data, psm_df)

@@ -57,11 +57,14 @@ def _first_rows(frame: dict, key: np.ndarray) -> dict:
 
 
 class TransferRequantHandler:
-    def __init__(self, config, calibration_manager, optimization_manager, device=None):
+    def __init__(self, config, calibration_manager, optimization_manager, device=None, devices=None):
         self._config = config
         self._cm = calibration_manager
         self._om = optimization_manager
+        # the scoring driver splits its chunks across all of ``devices`` (the
+        # JAX handler's ScoringConfig sets no mesh cap either)
         self.device = device
+        self.devices = devices
 
     def requantify(self, dia_data, psm_df: dict) -> tuple[dict, dict]:
         """(the PSM rows, one a candidate, with ``flat_frag_{start,stop}_idx``
@@ -102,6 +105,7 @@ class TransferRequantHandler:
             precursor_mz_column="mz_calibrated" if "mz_calibrated" in fprec else "mz_library",
             fragment_mz_column="mz_calibrated" if "mz_calibrated" in ffrag else "mz_library",
             device=self.device,
+            devices=self.devices,
         )
         _, frag_df = scoring({c: scored[c] for c in CANDIDATE_COLUMNS if c in scored})
         logger.log(25, "transfer requant: %s precursors -> %s fragments quantified",

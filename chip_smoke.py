@@ -82,8 +82,9 @@ Phases, in order; any failure exits non-zero:
    the card against the CPU's; the kernel's launches, each pass's first
    launch of every step held against the plain version; the IDs at 1% FDR
    and the protein groups gated against the JAX package's CLI on the same
-   files; (b) prediction at proteome scale: a seeded FASTA of 20,400
-   proteins digested, the four models on every precursor on the card
+   files; (b) prediction at proteome scale: a seeded FASTA of a quarter
+   of the human proteome (5,100 of 20,400 proteins) digested, the four
+   models on its leading 2**20 precursors on the card
    (walls, device ms, precursors/s, peak memory, the card against the CPU
    on the first 20,000), ``SimplePrediction.forward`` on the whole digest
    or the largest leading share its host stages fit into the phase's 200 s
@@ -150,8 +151,27 @@ Phases, in order; any failure exits non-zero:
    loop, through ``alphadia-torch --profile-dir``: its trace holds the
    kernel's CUDA events and the workflow's ``alphadia_torch.<phase>``
    spans;
-15. the ``{"kernels": [...]}`` line, then the card's name and power limit,
-   then the ``{"ok": true, ...}`` line last.
+15. several cards and processes, on the one card: (a) every recorded launch
+   of phase [3] through the sharded route (``parallel/shard_ops.
+   extract_xic_cuda_sharded``) over the card named 2 and 4 times, equal to
+   the unsharded kernel at atol 0 and held to the plain version, per pass
+   the sharded and unsharded device ms beside the bound; (b) selection and
+   scoring with ``mesh_devices`` 2 over the card named twice, on the 3D
+   world and [8]'s 4D quarter world, against one device (the same
+   candidates and PSMs, every launch through the route), then each of the
+   drivers' launches run again alone and held to the plain version, per
+   pass the sharded drivers' kernel ms beside one device's and the bound
+   (the ``xic_sharded`` entry of the kernels line); (c) ``alphadia-torch``
+   on [9]'s runs as two processes of one ``gloo`` group on the card, in
+   ``torchrun``'s and in the JAX package's environment (each searched one
+   run, process 0 built the outputs once, process 1 returned after them;
+   IDs and groups in [9]'s band; the PSMs against [9]'s one process); (d)
+   ``general.fail_fast`` with rank 1's file unreadable: both end, rank 1
+   with one process's exit code for that file;
+16. the ``{"kernels": [...]}`` line (``xic``: the launches of phases
+   [4]-[14]; ``xic_sharded``: those of [15b]'s sharded drivers; the
+   processes of [15c] and [15d] count in neither), then the card's name
+   and power limit, then the ``{"ok": true, ...}`` line last.
 """
 
 from __future__ import annotations
@@ -470,6 +490,13 @@ def compare(args, kw):
     torch.cuda.synchronize()
     p = extract_xic_packed(*args, **kw)
     torch.cuda.synchronize()
+    return plane_errors(k, p, kw)
+
+
+def plane_errors(k, p, kw):
+    """Per output plane of a kernel result ``k`` against the plain version's
+    ``p``: max abs and rel error, the count outside the tolerance, and
+    sum |plain|."""
     k = k if isinstance(k, tuple) else (k,)
     p = p if isinstance(p, tuple) else (p,)
     tols = (TOL_INTENSITY, TOL_MZ_DELTA if kw.get("mz_as_delta") else TOL_MZ_ABSOLUTE)
@@ -1924,13 +1951,8 @@ def phase9(root, name, card, launches, secs, tmp):
 
     got = cli_readings(out, truth, cycle_rts)
     jax = CLI_JAX_READINGS
-    checks = []
-    for r in range(2):
-        lo = min(jax[f"identified_run_{r}"]) - 0.005
-        hi = max(0.02, max(jax[f"false_run_{r}"]) + 0.005)
-        checks += [(f"identified_run_{r}", got[f"identified_run_{r}"], (lo, 1.0)),
-                   (f"false_run_{r}", got[f"false_run_{r}"], (0.0, hi))]
-    for k in ("protein_groups", "groups_precursor", "groups_peptide", "groups_pg"):
+    checks = cli_id_checks(got)
+    for k in ("groups_precursor", "groups_peptide", "groups_pg"):
         checks.append((k, got[k], band(jax[k], rel=CLI_REL_BAND)))
     checks.append(("log2_ratio_median", got["log2_ratio_median"], band(jax["log2_ratio_median"], add=CLI_RATIO_MEDIAN_TOL)))
     checks.append(("log2_ratio_mad", got["log2_ratio_mad"], band(jax["log2_ratio_mad"], rel=CLI_RATIO_MAD_REL)))
@@ -1963,7 +1985,21 @@ def phase9(root, name, card, launches, secs, tmp):
             failed.append(k)
     if failed:
         raise AssertionError(f"CLI: gates failed: {failed}")
-    return worst
+    return worst, (raws, lib, truth, cycle_rts)
+
+
+def cli_id_checks(got: dict) -> list:
+    """Phase [9]'s gates on the IDs per run and the protein groups of a CLI
+    run on its inputs (``cli_readings``), against the JAX band."""
+    jax = CLI_JAX_READINGS
+    checks = []
+    for r in range(2):
+        lo = min(jax[f"identified_run_{r}"]) - 0.005
+        hi = max(0.02, max(jax[f"false_run_{r}"]) + 0.005)
+        checks += [(f"identified_run_{r}", got[f"identified_run_{r}"], (lo, 1.0)),
+                   (f"false_run_{r}", got[f"false_run_{r}"], (0.0, hi))]
+    checks.append(("protein_groups", got["protein_groups"], band(jax["protein_groups"], rel=CLI_REL_BAND)))
+    return checks
 
 
 # ---------------------------------------------------------------------------
@@ -1998,6 +2034,15 @@ LF_PREDICTION_ATOL = 1e-4
 PROTEOME_PREDICTION_CHECK = 20000
 PROTEOME_BUDGET_S = 120.0
 PROTEOME_FORWARD_PROBE = 100000
+# Cut for the script's time, which went to phase [15] (the script took
+# 1,038-1,061 s of its 1,200 on slow hosts of the H100 machine): the digest
+# covers a quarter of the proteome's proteins (the whole, 4,308,409
+# precursors, took 50.8-76.9 s on one host thread there: its rate is per
+# protein), and the four models run on its leading 2**20 precursors (128
+# batches of 8192; over the whole digest 18-22 s of host wall each for
+# ~1.2 s on the card)
+PROTEOME_DIGEST_PROTEINS = 5100
+PROTEOME_MODEL_ROWS = 1 << 20
 
 
 class ModelTimes:
@@ -2254,10 +2299,12 @@ def phase10a(root, name, card, launches, secs, tmp):
 
 
 def phase10b(name, card, tmp):
-    """Prediction at proteome scale: a seeded FASTA of the human proteome's
-    20,400 proteins digested at the default settings, the four models on
-    every precursor on the card (walls, device ms, precursors/s, peak
-    memory), the card against the CPU on the first precursors, and
+    """Prediction at proteome scale: a seeded FASTA of a quarter of the
+    human proteome's 20,400 proteins (``PROTEOME_DIGEST_PROTEINS``) digested
+    at the default settings, the four models on its leading
+    ``PROTEOME_MODEL_ROWS`` precursors on the card (walls,
+    device ms, precursors/s, peak memory), the card against the CPU on the
+    first precursors, and
     ``SimplePrediction.forward`` over the whole digest or, where its host
     stages would pass the phase's aim, the largest leading share that fits."""
     import torch
@@ -2270,16 +2317,19 @@ def phase10b(name, card, tmp):
     from alphadia_torch.utils.frame import take
 
     t_phase = time.perf_counter()
-    fasta = write_fasta(tmp / "proteome.fasta", HUMAN_PROTEOME_PROTEINS, seed=0)
+    fasta = write_fasta(tmp / "proteome.fasta", PROTEOME_DIGEST_PROTEINS, seed=0)
     t0 = time.perf_counter()
     df = digest_fasta([str(fasta)]).precursor_df
     digest_s = time.perf_counter() - t0
     n = len(df["charge"])
     log(
-        f"[10b] proteome: {HUMAN_PROTEOME_PROTEINS} proteins ({fasta.stat().st_size / 2**20:.1f} MiB FASTA), digest at "
+        f"[10b] proteome: {PROTEOME_DIGEST_PROTEINS} of the human proteome's {HUMAN_PROTEOME_PROTEINS} proteins "
+        f"({fasta.stat().st_size / 2**20:.1f} MiB FASTA), digest at "
         f"the default settings: {n} precursors in {digest_s:.4f} s ({n / digest_s:.1f} precursors/s, host)"
     )
-    seqs, mods, sites, charge = list(df["sequence"]), list(df["mods"]), list(df["mod_sites"]), df["charge"].astype(np.int32)
+    k = min(n, PROTEOME_MODEL_ROWS)
+    seqs, mods, sites = list(df["sequence"][:k]), list(df["mods"][:k]), list(df["mod_sites"][:k])
+    charge = df["charge"][:k].astype(np.int32)
     manager = FinetuneManager.load(PACKAGED_MODELS)  # the card
     on_cpu = FinetuneManager.load(PACKAGED_MODELS, device="cpu")
     m = PROTEOME_PREDICTION_CHECK
@@ -2296,12 +2346,12 @@ def phase10b(name, card, tmp):
             ref = getattr(on_cpu, method)(*(a[:m] for a in args))
             err = float(np.abs(got[:m] - ref).max())
             log(
-                f"[10b] {model}: {n} precursors, wall {wall:.4f} s ({n / wall:.1f} precursors/s), "
-                f"device {dev_ms:.4f} ms ({n / max(dev_ms, 1e-9) * 1e3:.1f} precursors/s on the card; "
+                f"[10b] {model}: the leading {k} of {n} precursors, wall {wall:.4f} s ({k / wall:.1f} precursors/s), "
+                f"device {dev_ms:.4f} ms ({k / max(dev_ms, 1e-9) * 1e3:.1f} precursors/s on the card; "
                 f"{len(mt.events.get(model, []))} batches of {FinetuneManager.PREDICT_BATCH}); the card against the CPU on the "
                 f"first {m}: max abs {err:.3g} {'ok' if err <= LF_PREDICTION_ATOL else 'FAILED'} ({name}, {card})"
             )
-            if err > LF_PREDICTION_ATOL or got.shape[0] != n or not np.isfinite(got).all():
+            if err > LF_PREDICTION_ATOL or got.shape[0] != k or not np.isfinite(got).all():
                 raise AssertionError(f"proteome: the {model} model on the card departs from the CPU")
             del got
     log(f"[10b] max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB over the four models ({name}, {card})")
@@ -3848,7 +3898,444 @@ def phase14(root, name, card, launches, secs, tmp):
     return worst
 
 
+# ---------------------------------------------------------------------------
+# 15. several processes and several shards on the one card
+# ---------------------------------------------------------------------------
+# The machine holds one card, so the card named twice (and four times)
+# stands for several cards, and two processes share it in one gloo group.
+# Each process of [15c] and [15d] must end within P15_TIMEOUT_S; where one
+# does not, every process of the group is killed. (b): the PSM features of
+# the sharded drivers against one device's, relative to max(|value|, 1),
+# where they are not equal
+P15_TIMEOUT_S = 240
+P15_REPS = 5
+P15_FEATURE_TOL = 1e-6
+P15_SLEEP_CYCLES = 2_000_000  # a launch's share of the sleep that hides the host's enqueue (~1 ms)
+_GROUP_ENV = (
+    "WORLD_SIZE", "RANK", "LOCAL_RANK", "LOCAL_WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT",
+    "ALPHADIA_TPU_COORDINATOR", "ALPHADIA_TPU_NUM_PROCESSES", "ALPHADIA_TPU_PROCESS_ID",
+    "SLURM_JOB_ID", "SLURM_PROCID", "SLURM_NTASKS", "SLURM_LOCALID",
+)
+
+
+def replaced_sharded(root: Path) -> str:
+    """``file:line`` of the JAX package's per-shard Pallas route
+    (``extract_xic_pallas_sharded``) in this checkout."""
+    for path in sorted(root.glob("*/parallel/shard_ops.py")):
+        for i, line in enumerate(path.read_text().splitlines(), 1):
+            if line.startswith("def extract_xic_pallas_sharded("):
+                return f"{path.relative_to(root)}:{i}"
+    raise FileNotFoundError("the sharded Pallas route is not in this checkout")
+
+
+def launches_ms(fns, reps=P15_REPS) -> float:
+    """Device ms of one run of every function in ``fns`` back to back (mean
+    of ``reps`` runs, each timed alone), the card kept busy by a sleep while
+    the host enqueues a run (a run's few hundred launches stay within the
+    card's queue of launches, so the host never waits for it)."""
+    import torch
+
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(P15_SLEEP_CYCLES * len(fns))
+        start.record()
+        for fn in fns:
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
+def phase15a(calls, plain_ms_of, name, card) -> None:
+    """(a) Every recorded launch of phase [3] through
+    ``extract_xic_cuda_sharded`` over the card named 2 and 4 times, where
+    its batch splits: equal to the unsharded kernel at atol 0 and held to
+    the plain version; per pass the sharded and the unsharded device ms
+    and the bound. The function is the counterpart of the JAX package's
+    ``extract_xic_pallas_sharded``, which only that package's tests call;
+    the drivers shard through ``run_on_devices`` ([15b])."""
+    import torch
+
+    from alphadia_torch.ops.xic import extract_xic_packed
+    from alphadia_torch.ops.xic_cuda import extract_xic_cuda
+    from alphadia_torch.parallel.shard_ops import extract_xic_cuda_sharded
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    passes, worst, skipped = {}, [0.0, 0.0], {2: 0, 4: 0}
+    for i, (stage, args, kw) in enumerate(calls):
+        store, cell, slot, qmz, tol, c0 = args
+        want = extract_xic_cuda(*args, **kw)
+        want = want if isinstance(want, tuple) else (want,)
+        plain = None
+        for n in (2, 4):
+            if slot.shape[0] % n:
+                skipped[n] += 1
+                continue
+
+            def sharded(n=n, store=store, cell=cell, slot=slot, qmz=qmz, tol=tol, c0=c0, kw=kw):
+                return extract_xic_cuda_sharded([dev] * n, [store] * n, [cell] * n, slot, qmz, tol, c0, **kw)
+
+            got = sharded()
+            got = got if isinstance(got, tuple) else (got,)
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError(f"[15a] {stage} launch {i}: the {n}-way route differs from the unsharded kernel")
+            if plain is None:
+                plain = extract_xic_packed(*args, **kw)
+            for plane, (mabs, mrel, bad, _) in zip(("intensity", "mz"), plane_errors(got, plain, kw)):
+                if bad:
+                    raise AssertionError(f"[15a] {stage} launch {i} {plane}: the {n}-way route disagrees with the plain version")
+                worst = [max(worst[0], mabs), max(worst[1], mrel)]
+            acc = passes.setdefault((stage, n), {"sharded": [], "unsharded": [], "bytes": 0, "ops": 0, "plain_ms": 0.0})
+            acc["sharded"].append(sharded)
+            acc["unsharded"].append(lambda args=args, kw=kw: extract_xic_cuda(*args, **kw))
+            nbytes, ops = work(args, kw)
+            acc["bytes"] += nbytes
+            acc["ops"] += ops
+            acc["plain_ms"] += plain_ms_of[i]
+    total = dict.fromkeys(("launches", "ms", "unsharded_ms", "plain_ms", "bytes", "ops"), 0)
+    for (stage, n), acc in sorted(passes.items()):
+        s_ms, u_ms = launches_ms(acc["sharded"]), launches_ms(acc["unsharded"])
+        bound = max(acc["bytes"] / HBM_BYTES_PER_S, acc["ops"] / FP32_OPS_PER_S) * 1e3
+        log(
+            f"[15a] {stage:17s} over cuda:0 x{n}: {len(acc['sharded'])} launches, sharded {s_ms:.4f} ms, unsharded "
+            f"{u_ms:.4f} ms, bound {bound:.4f} ms ({bound / s_ms:.2f} of it sharded), each equal to the unsharded "
+            f"kernel ({name}, {card})"
+        )
+        if n == 2:
+            for k, v in (("launches", len(acc["sharded"])), ("ms", s_ms), ("unsharded_ms", u_ms),
+                         ("plain_ms", acc["plain_ms"]), ("bytes", acc["bytes"]), ("ops", acc["ops"])):
+                total[k] += v
+    if not total["launches"]:
+        raise AssertionError("[15a] no recorded launch splits in two")
+    by_bytes = total["bytes"] / HBM_BYTES_PER_S >= total["ops"] / FP32_OPS_PER_S
+    total["bound_ms"] = max(total["bytes"] / HBM_BYTES_PER_S, total["ops"] / FP32_OPS_PER_S) * 1e3
+    total["bound_by"] = "bytes" if by_bytes else "operations"
+    total["max_abs_err"] = worst[0]
+    log(
+        f"[15a] the 2-way route on {total['launches']} of {len(calls)} launches ({skipped[2]} with an odd batch; 4-way: "
+        f"{len(calls) - skipped[4]}): sharded {total['ms']:.4f} ms, unsharded {total['unsharded_ms']:.4f} ms, plain "
+        f"{total['plain_ms']:.4f} ms, bound {total['bound_ms']:.4f} ms ({total['bound_by']}); against the plain "
+        f"version max_abs={worst[0]:.3g} max_rel={worst[1]:.3g} ({name}, {card})"
+    )
+
+
+def phase15b(worlds, name, card) -> dict:
+    """(b) ``CandidateSelection`` -> ``CandidateScoring`` with
+    ``mesh_devices`` 2 over the card named twice, on the 3D world and the 4D
+    quarter world of [8], against the same drivers on the card alone: the
+    same candidates and PSMs, every launch through the sharded route. Then
+    every launch of both runs again alone: per pass the sharded drivers'
+    summed kernel ms beside one device's and the bound, each sharded launch
+    held against the plain version. Returns the route's readings for the
+    kernels line (its launches are those of the sharded drivers' runs)."""
+    import torch
+
+    from alphadia_torch.ops import xic_cuda
+    from alphadia_torch.ops.xic import extract_xic_packed
+    from alphadia_torch.parallel import shard_ops
+    from alphadia_torch.search.scoring import FEATURE_COLUMNS, CandidateScoring, ScoringConfig
+    from alphadia_torch.search.selection import CandidateSelection, SelectionConfig
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    quarter = make_world(N_PEPTIDES_4D // 4, N_CYCLES, n_windows=3, with_mobility=True)
+    route = dict.fromkeys(("launches", "ms", "plain_ms", "bytes", "ops", "max_abs_err"), 0)
+    for label, tag, (dia, prec, frag) in (("3D", "", worlds[""]), ("4D quarter", "_4d_quarter", quarter)):
+        scfg = SelectionConfig(rt_tolerance=60.0, candidate_count=3, mesh_devices=2)
+        ccfg = ScoringConfig(batch_size=8192, collect_fragments=True, mesh_devices=2)
+        out, walls, recorded = {}, {}, {}
+        for who, kw in (("one", {"device": dev}), ("two", {"devices": [dev, dev]})):
+            torch.cuda.synchronize()
+            xic_cuda.launches = shard_ops.launches = 0
+            with Recorder() as rec:
+                rec.stage = who
+                t0 = time.perf_counter()
+                cands = CandidateSelection(dia, prec, frag, scfg, **kw)()
+                psm, frags = CandidateScoring(dia, prec, frag, ccfg, **kw)(cands)
+                torch.cuda.synchronize()
+                walls[who] = time.perf_counter() - t0
+            out[who] = (cands, psm, frags, xic_cuda.launches, shard_ops.launches)
+            recorded[who] = rec.calls
+        (c1, p1, f1, n1, _), (c2, p2, f2, n2, r2) = out["one"], out["two"]
+        route["launches"] += r2
+        if n2 == 0 or r2 != n2 or len(recorded["two"]) != n2:
+            raise AssertionError(
+                f"[15b] {label}: {n2} launches, {r2} of them through the sharded route, {len(recorded['two'])} recorded"
+            )
+        for c in c1:
+            if not np.array_equal(c1[c], c2[c]):
+                raise AssertionError(f"[15b] {label}: candidates differ in {c}")
+        for c in ("precursor_idx", "rank"):
+            if not np.array_equal(p1[c], p2[c]):
+                raise AssertionError(f"[15b] {label}: PSM rows differ ({c})")
+        worst = 0.0
+        for c in FEATURE_COLUMNS:
+            a, b = p1[c].astype(np.float64), p2[c].astype(np.float64)
+            d = np.abs(a - b) / np.maximum(np.abs(a), 1.0)
+            worst = max(worst, float(np.nanmax(d)) if d.size else 0.0)
+            if not np.array_equal(np.isnan(a), np.isnan(b)):
+                raise AssertionError(f"[15b] {label}: NaNs differ in {c}")
+        fr = all(np.array_equal(f1[c], f2[c], equal_nan=f1[c].dtype.kind == "f") for c in f1)
+        log(
+            f"[15b] {label}: {len(c1['precursor_idx'])} candidates equal, {len(p1['precursor_idx'])} PSMs, largest "
+            f"feature difference {worst:.3g} (relative to max(|value|, 1)), fragments equal {fr}; one card "
+            f"{walls['one']:.4f} s ({n1} launches), cuda:0 x2 {walls['two']:.4f} s ({n2} launches, {r2} through the "
+            f"sharded route) ({name}, {card})"
+        )
+        if worst > P15_FEATURE_TOL:
+            raise AssertionError(f"[15b] {label}: PSM features differ by {worst:.3g}")
+        # the drivers' own launches run again alone, as phase [5] times them
+        per_pass = {}
+        for who, calls in recorded.items():
+            for _, args, kw in calls:
+                acc = per_pass.setdefault((pass_of(kw), who), dict.fromkeys(("launches", "ms", "plain_ms", "bytes", "ops"), 0))
+                acc["launches"] += 1
+                acc["ms"] += device_ms(lambda: xic_cuda.extract_xic_cuda(*args, **kw), KERNEL_REPS)
+                nbytes, ops = work(args, kw)
+                acc["bytes"] += nbytes
+                acc["ops"] += ops
+                if who == "two":
+                    acc["plain_ms"] += device_ms(lambda: extract_xic_packed(*args, **kw), PLAIN_REPS, warmup=1)
+                    for plane, (mabs, _, bad, _) in zip(("intensity", "mz"), compare(args, kw)):
+                        if bad:
+                            raise AssertionError(f"[15b] {label} {pass_of(kw)} {plane}: a shard's launch disagrees with the plain version")
+                        route["max_abs_err"] = max(route["max_abs_err"], mabs)
+        for pass_name in sorted({p for p, _ in per_pass}):
+            s_, u = per_pass[(pass_name, "two")], per_pass[(pass_name, "one")]
+            bound = max(s_["bytes"] / HBM_BYTES_PER_S, s_["ops"] / FP32_OPS_PER_S) * 1e3
+            log(
+                f"[15b] {label} {pass_name}: the sharded drivers' {s_['launches']} launches {s_['ms']:.4f} ms warm "
+                f"(plain {s_['plain_ms']:.4f} ms), one device's {u['launches']} launches {u['ms']:.4f} ms, bound of the "
+                f"sharded launches {bound:.4f} ms ({bound / s_['ms']:.2f} of it), each held against the plain version "
+                f"({name}, {card})"
+            )
+            for k in ("ms", "plain_ms", "bytes", "ops"):
+                route[k] += s_[k]
+    by_bytes = route["bytes"] / HBM_BYTES_PER_S >= route["ops"] / FP32_OPS_PER_S
+    route["bound_ms"] = max(route["bytes"] / HBM_BYTES_PER_S, route["ops"] / FP32_OPS_PER_S) * 1e3
+    route["bound_by"] = "bytes" if by_bytes else "operations"
+    log(
+        f"[15b] the sharded route in the drivers: {route['launches']} launches, {route['ms']:.4f} ms warm, plain "
+        f"{route['plain_ms']:.4f} ms, bound {route['bound_ms']:.4f} ms ({route['bound_by']}), max_abs="
+        f"{route['max_abs_err']:.3g} against the plain version ({name}, {card})"
+    )
+    return route
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def group_env(rank: int, contract: str, port: int) -> dict:
+    """The environment of process ``rank`` of two: ``torchrun``'s or the JAX
+    package's contract, on a fresh port; any inherited group setting cleared."""
+    env = {k: v for k, v in os.environ.items() if k not in _GROUP_ENV}
+    if contract == "torchrun":
+        env.update(WORLD_SIZE="2", RANK=str(rank), LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE="2",
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    else:
+        env.update(ALPHADIA_TPU_COORDINATOR=f"127.0.0.1:{port}", ALPHADIA_TPU_NUM_PROCESSES="2",
+                   ALPHADIA_TPU_PROCESS_ID=str(rank))
+    return env
+
+
+def run_group(root, argv, contract, tmp, label) -> tuple[list, float]:
+    """``alphadia-torch argv`` as two processes of one group on the card
+    (``chip_smoke.py --cli-process``); each one's report (its exit code
+    added) and the wall of the whole. Kills both when one outlives
+    ``P15_TIMEOUT_S``."""
+    port = free_port()
+    procs = []
+    t0 = time.perf_counter()
+    for rank in (0, 1):
+        report, out_log = tmp / f"{label}_rank{rank}.json", tmp / f"{label}_rank{rank}.log"
+        with open(out_log, "w") as f:
+            proc = subprocess.Popen([sys.executable, str(root / "chip_smoke.py"), "--cli-process", str(report), *argv],
+                                    cwd=root, env=group_env(rank, contract, port), stdout=f, stderr=subprocess.STDOUT)
+        procs.append((proc, report, out_log))
+    try:
+        for proc, _, _ in procs:
+            proc.wait(timeout=max(1.0, P15_TIMEOUT_S - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired as e:
+        raise AssertionError(f"[15] {label}: a process outlived {P15_TIMEOUT_S} s") from e
+    finally:
+        for proc, _, _ in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall = time.perf_counter() - t0
+    reports = []
+    for rank, (proc, report, out_log) in enumerate(procs):
+        r = json.loads(report.read_text()) if report.exists() else {"rank": rank, "missing": True}
+        r["exit"] = proc.returncode
+        reports.append(r)
+        if proc.returncode != 0 or r.get("missing"):
+            log(f"[15] {label} rank {rank} exit {proc.returncode}, its output's end:\n"
+                + "\n".join(out_log.read_text().splitlines()[-25:]))
+    return reports, wall
+
+
+def cli_process(args) -> int:
+    """One process of [15c] / [15d]: ``alphadia-torch`` (``cli.run``) with
+    ``args[1:]``, its group from the environment; writes to ``args[0]`` its
+    rank, exit code, the runs it searched, whether it built the cross-run
+    outputs, whether they existed when it returned, its wall and its kernel
+    launches."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
+        return 2
+    report, argv = Path(args[0]), list(args[1:])
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import alphadia_torch.cli as cli
+    import alphadia_torch.search_step as search_step
+    from alphadia_torch.ops import xic_cuda
+    from alphadia_torch.outputs.search_plan_output import SearchPlanOutput
+    from alphadia_torch.parallel import distributed
+
+    searched, builds = [], []
+    process_raw, build = search_step.SearchStep._process_raw_file, SearchPlanOutput.build
+
+    def recorded_raw(self, raw_path, raw_name, quant_dir):
+        searched.append(raw_name)
+        return process_raw(self, raw_path, raw_name, quant_dir)
+
+    def counted_build(self, *a, **k):
+        builds.append(1)
+        return build(self, *a, **k)
+
+    search_step.SearchStep._process_raw_file = recorded_raw
+    SearchPlanOutput.build = counted_build
+    out = Path(argv[argv.index("-o") + 1])
+    code = 0
+    t0 = time.perf_counter()
+    try:
+        cli.run(argv)
+    except SystemExit as e:
+        code = e.code if isinstance(e.code, int) else 1
+    torch.cuda.synchronize()
+    report.write_text(json.dumps({
+        "rank": distributed.process_index(), "count": distributed.process_count(), "code": code,
+        "searched": searched, "builds": len(builds),
+        "built_at_return": (out / "stat.tsv").exists() and (out / "precursors.parquet").exists(),
+        "wall": time.perf_counter() - t0, "launches": xic_cuda.launches,
+        "devices": [str(d) for d in distributed.local_devices()],
+    }))
+    return code
+
+
+def psm_differences(a: dict, b: dict) -> str:
+    """Where two runs' ``psm.parquet`` frames part: rows, and the largest
+    difference of the numeric columns where the rows agree."""
+    if list(a) != list(b):
+        return f"columns differ: {sorted(set(a) ^ set(b))}"
+    na, nb = len(a["precursor_idx"]), len(b["precursor_idx"])
+    if na != nb or not np.array_equal(a["precursor_idx"], b["precursor_idx"]):
+        common = len(set(a["precursor_idx"].tolist()) & set(b["precursor_idx"].tolist()))
+        return f"{na} against {nb} PSMs, {common} precursors in common"
+    worst = {c: float(np.nanmax(np.abs(a[c].astype(np.float64) - b[c].astype(np.float64))))
+             for c in a if a[c].dtype.kind in "fiu" and a[c].size and not np.array_equal(a[c], b[c], equal_nan=True)}
+    return f"the same {na} PSMs; columns that differ (largest difference): {json.dumps(worst)}" if worst else "equal"
+
+
+def phase15c(root, cli_inputs, name, card, secs, tmp):
+    """(c) ``alphadia-torch`` on [9]'s two runs and library as two processes
+    on the card, in ``torchrun``'s and in the JAX package's contract: each
+    process searched one run, process 0 built the outputs over both once,
+    process 1 returned after they existed; IDs per run and protein groups
+    in [9]'s JAX band; each run's PSMs against the one-process CLI of [9]."""
+    from alphadia_torch.utils.parquet import read_parquet
+    from alphadia_torch.utils.tsv import read_tsv
+    from torch_workflow_worlds import cli_readings
+
+    raws, lib, truth, cycle_rts = cli_inputs
+    for contract in ("torchrun", "jax"):
+        out = tmp / f"p15_{contract}"
+        argv = ["-o", str(out), "-f", str(raws[0]), "-f", str(raws[1]), "-l", str(lib), "--quant-dir",
+                str(out / "quant"), "--config-dict", json.dumps({"general": {"random_state": 0, "log_level": "PROGRESS"}})]
+        reports, wall = run_group(root, argv, contract, tmp, f"cli_{contract}")
+        r0, r1 = reports
+        stat = read_tsv(out / "stat.tsv") if (out / "stat.tsv").exists() else {"run": []}
+        precursors = read_parquet(out / "precursors.parquet") if (out / "precursors.parquet").exists() else {}
+        runs = sorted(set(precursors.get("raw.name", np.array([])).tolist()))
+        log(
+            f"[15c] {contract}: exits {r0['exit']} / {r1['exit']}; rank 0 searched {r0.get('searched')} on "
+            f"{r0.get('devices')} in {r0.get('wall', float('nan')):.4f} s ({r0.get('launches')} launches, built the "
+            f"outputs {r0.get('builds')} times), rank 1 searched {r1.get('searched')} on {r1.get('devices')} in "
+            f"{r1.get('wall', float('nan')):.4f} s ({r1.get('launches')} launches, built {r1.get('builds')} times, outputs "
+            f"there at its return: {r1.get('built_at_return')}); the whole {wall:.4f} s against [9]'s one process "
+            f"{secs.get('cli', float('nan')):.4f} s; stat.tsv {len(stat['run'])} rows, precursors.parquet runs {runs} "
+            f"({name}, {card})"
+        )
+        checks = [
+            ("exit rank 0", r0["exit"], (0, 0)), ("exit rank 1", r1["exit"], (0, 0)),
+            ("group size rank 0", r0.get("count", 0), (2, 2)), ("group size rank 1", r1.get("count", 0), (2, 2)),
+            ("rank 0 searched run_0 only", int(r0.get("searched") == ["run_0"]), (1, 1)),
+            ("rank 1 searched run_1 only", int(r1.get("searched") == ["run_1"]), (1, 1)),
+            ("outputs built by rank 0", r0.get("builds", 0), (1, 1)), ("outputs built by rank 1", r1.get("builds", 1), (0, 0)),
+            ("outputs there at rank 1's return", int(bool(r1.get("built_at_return"))), (1, 1)),
+            ("launches rank 0", r0.get("launches", 0), (1, float("inf"))),
+            ("launches rank 1", r1.get("launches", 0), (1, float("inf"))),
+            ("stat.tsv rows", len(stat["run"]), (2, 2)), ("runs in precursors.parquet", len(runs), (2, 2)),
+        ]
+        if r0["exit"] == 0 and r1["exit"] == 0:
+            checks += cli_id_checks(cli_readings(out, truth, cycle_rts))
+            for run in ("run_0", "run_1"):
+                one = read_parquet(tmp / "cli_out" / "quant" / run / "psm.parquet")
+                two = read_parquet(out / "quant" / run / "psm.parquet")
+                log(f"[15c] {contract} {run}: psm.parquet against [9]'s one-process CLI: {psm_differences(one, two)}")
+        failed = [k for k, v, (lo, hi) in checks if not lo <= v <= hi]
+        for k, v, (lo, hi) in checks:
+            log(f"[15c] gate {contract} {k}: {v} in [{lo}, {hi}] {'ok' if lo <= v <= hi else 'FAILED'} ({name}, {card})")
+        if failed:
+            raise AssertionError(f"[15c] {contract}: gates failed: {failed}")
+
+
+def phase15d(root, cli_inputs, name, card, tmp):
+    """(d) ``general.fail_fast`` with rank 1's raw file unreadable: both
+    processes end within the timeout, rank 1 with the exit code one process
+    gives for that file, after rank 0 has built the outputs of its run."""
+    import alphadia_torch.cli as cli
+
+    raws, lib, _, _ = cli_inputs
+    bad = tmp / "p15_unreadable.mzML"
+    bad.write_text("<mzML>not a run</mzML>\n")
+    cfg = json.dumps({"general": {"random_state": 0, "fail_fast": True, "log_level": "PROGRESS"}})
+    expected = 0
+    try:
+        cli.run(["-o", str(tmp / "p15_ff_one"), "-f", str(bad), "-l", str(lib), "--config-dict", cfg])
+    except SystemExit as e:
+        expected = e.code
+    out = tmp / "p15_ff"
+    argv = ["-o", str(out), "-f", str(raws[0]), "-f", str(bad), "-l", str(lib), "--quant-dir", str(out / "quant"),
+            "--config-dict", cfg]
+    (r0, r1), wall = run_group(root, argv, "torchrun", tmp, "fail_fast")
+    log(f"[15d] fail_fast, rank 1's file unreadable: exits {r0['exit']} / {r1['exit']} (one process on that file: "
+        f"{expected}), rank 0 searched {r0.get('searched')}, rank 1's outputs there when it raised: "
+        f"{r1.get('built_at_return')}; the whole {wall:.4f} s ({name}, {card})")
+    checks = [("one process's exit on the file", expected, (1, float("inf"))), ("exit rank 0", r0["exit"], (0, 0)),
+              ("exit rank 1", r1["exit"], (expected, expected)),
+              ("rank 1 raised after the outputs", int(bool(r1.get("built_at_return"))), (1, 1))]
+    failed = [k for k, v, (lo, hi) in checks if not lo <= v <= hi]
+    for k, v, (lo, hi) in checks:
+        log(f"[15d] gate {k}: {v} in [{lo}, {hi}] {'ok' if lo <= v <= hi else 'FAILED'} ({name}, {card})")
+    if failed:
+        raise AssertionError(f"[15d] gates failed: {failed}")
+
+
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--cli-process"]:  # one process of phase [15c] / [15d]
+        return cli_process(argv[1:])
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true", help="also trace one pass of each path")
     opt = ap.parse_args(argv)
@@ -3935,6 +4422,7 @@ def main(argv=None) -> int:
     zero = dict(ms=0.0, flushed_ms=0.0, plain_ms=0.0, bytes=0, covered=0, ops=0, plain_mem=0)
     tot = dict(zero)
     per_stage = {}
+    plain_ms_of = []  # each launch's plain-version ms, for phase [15a]
     for stage, args, kw in calls:
         def kernel():
             return xic_cuda.extract_xic_cuda(*args, **kw)
@@ -3942,6 +4430,7 @@ def main(argv=None) -> int:
         k_ms = device_ms(kernel, KERNEL_REPS)
         f_ms = device_ms_flushed(kernel, KERNEL_REPS, flush)
         p_ms = device_ms(lambda: extract_xic_packed(*args, **kw), PLAIN_REPS, warmup=1)
+        plain_ms_of.append(p_ms)
         p_mem = plain_peak_bytes(args, kw)
         nbytes, ops = work(args, kw)
         # what the kernel of this checkout covers (older commits' kernels
@@ -4022,7 +4511,7 @@ def main(argv=None) -> int:
         log(f"[8] kernel launches per run: {json.dumps(launches)} ({name}, {card})")
 
         # ---- 9. the CLI across two runs ---------------------------------------
-        w = phase9(root, name, card, launches, secs, tmp)
+        w, cli_inputs = phase9(root, name, card, launches, secs, tmp)
         max_abs_err = max(max_abs_err, w[0])
         log(f"[9] kernel launches per run: {json.dumps(launches)} ({name}, {card})")
 
@@ -4064,7 +4553,17 @@ def main(argv=None) -> int:
             f"launches held against the plain version in phases [7]-[14] beyond the requants: {PLAIN_SAMPLES['held']} "
             f"of {PLAIN_SAMPLES['launches']} ({name}, {card})")
 
-    # ---- 15. summary lines --------------------------------------------------
+        # ---- 15. several processes and several shards on the one card ---------
+        t15 = time.perf_counter()
+        phase15a(calls, plain_ms_of, name, card)
+        route = phase15b(worlds, name, card)
+        phase15c(root, cli_inputs, name, card, secs, tmp)
+        phase15d(root, cli_inputs, name, card, tmp)
+        log(f"[15] phase [15] took {time.perf_counter() - t15:.2f} s; kernel launches per run of the main paths "
+            f"({sum(launches.values())} in all, the xic entry's): {json.dumps(launches)}; through the sharded route "
+            f"in [15b] {route['launches']} (the xic_sharded entry's) ({name}, {card})")
+
+    # ---- 16. summary lines --------------------------------------------------
     kernels = {
         "kernels": [
             {
@@ -4079,7 +4578,21 @@ def main(argv=None) -> int:
                 "bound_ms": bound_ms,
                 "bound_by": bound_by,
                 "library_ms": None,
-            }
+            },
+            {
+                "name": "xic_sharded",
+                "route": "cuda",
+                "source": "alphadia_torch/csrc/xic.cu",
+                "route_source": "alphadia_torch/parallel/shard_ops.py",
+                "replaces": replaced_sharded(root),
+                "launches": route["launches"],
+                "max_abs_err": route["max_abs_err"],
+                "ms": route["ms"],
+                "plain_ms": route["plain_ms"],
+                "bound_ms": route["bound_ms"],
+                "bound_by": route["bound_by"],
+                "library_ms": None,
+            },
         ]
     }
     print(json.dumps(kernels), flush=True)

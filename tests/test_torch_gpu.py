@@ -5,7 +5,8 @@ from 16 to 1024, Q of 1, 3 and 24), on the edges of ``torch_xic_edges``
 and on the launches that a 4D scoring pass makes; the plain 4D
 extraction rerun on the card, which must give the same bits; the
 pipelined extraction against sequential selection and scoring, both
-enqueuing every batch before they wait for any, classifier fits on the
+enqueuing every batch before they wait for any, the sharded route and the
+drivers over the card named twice against one device, classifier fits on the
 card (one held to a fit on the CPU), the per-run workflow (load ->
 optimization -> extraction), ``SearchStep`` (mzML and TSV library in,
 ``psm.parquet`` out; and from the committed Bruker ``.d`` and alphaRaw
@@ -357,6 +358,65 @@ def test_pipelined_equals_sequential_on_card(card, with_mobility):
         np.testing.assert_allclose(b[f], a[f], rtol=1e-5, atol=1e-6, err_msg=f)
 
 
+
+@pytest.mark.parametrize("variant", ["intensity", "mz_delta", "scan_window"])
+def test_sharded_route_over_the_card_twice_equals_the_kernel(card, variant):
+    """``extract_xic_cuda_sharded`` over ``[cuda:0, cuda:0]`` (each shard's
+    launch on its own device's stream) equals the unsharded kernel at atol
+    0, and counts its launches."""
+    from alphadia_torch.parallel import shard_ops
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    dia = _world(with_mobility=variant == "scan_window")
+    d = dia.device_arrays(1, dev)
+    rng = np.random.default_rng(5)
+    B, Q, W = 64, 12, 64
+    pick = rng.integers(0, dia.n_stored_peaks, (B, Q))
+    row = np.searchsorted(dia.cell_start[:, :, 0].reshape(-1), pick, side="right") - 1
+    slot = torch.from_numpy((row // dia.n_bins).astype(np.int32)).to(dev)
+    qmz = torch.from_numpy(dia.peak_mz[pick].astype(np.float32)).to(dev)
+    c0 = torch.from_numpy((dia.peak_cycle()[pick[:, 0]].astype(np.int64) - W // 2).astype(np.int32)).to(dev)
+    kw = dict(n_cycles=d["n_cycles"], n_bins=dia.n_bins, bin_mz_min=dia.bin_mz_min, bin_width=dia.coarse_bin_width,
+              window_len=W, with_mz=variant != "intensity", mz_as_delta=variant != "intensity")
+    if variant == "scan_window":
+        lo = torch.from_numpy(rng.integers(0, 5, B).astype(np.int32)).to(dev)
+        kw.update(scan_lo=lo, scan_hi=lo + 3)
+    want = xic_cuda.extract_xic_cuda(d["peak_store"], d["cell_start"], slot, qmz, 15.0, c0, **kw)
+    before = shard_ops.launches
+    got = shard_ops.extract_xic_cuda_sharded(
+        [dev, dev], [d["peak_store"]] * 2, [d["cell_start"]] * 2, slot, qmz, 15.0, c0, **kw
+    )
+    assert shard_ops.launches == before + 2
+    for g, w in zip(got if kw["with_mz"] else (got,), want if kw["with_mz"] else (want,)):
+        assert torch.equal(g, w)
+    assert float((want[0] if kw["with_mz"] else want).sum()) > 0
+
+
+@pytest.mark.parametrize("with_mobility", [False, True], ids=["3d", "4d"])
+def test_drivers_over_the_card_twice_equal_one_device(card, with_mobility):
+    """Selection and scoring with every batch split over ``[cuda:0,
+    cuda:0]`` give the one-device candidates exactly and its PSMs (features
+    within rtol 1e-5, atol 1e-6: the batches' shapes differ, the arithmetic
+    of a row does not); every launch goes through the sharded route."""
+    from alphadia_torch.parallel import shard_ops
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    _, dia, prec, frag = _library_world(with_mobility)
+    sel = SelectionConfig(candidate_count=3, batch_size=512, mesh_devices=2)
+    score = ScoringConfig(batch_size=256, collect_fragments=True, mesh_devices=2)
+    cands = CandidateSelection(dia, prec, frag, sel, device=dev)()
+    psm, _ = CandidateScoring(dia, prec, frag, score, device=dev)(cands)
+    launches, routed = xic_cuda.launches, shard_ops.launches
+    cands_2 = CandidateSelection(dia, prec, frag, sel, devices=[dev, dev])()
+    psm_2, _ = CandidateScoring(dia, prec, frag, score, devices=[dev, dev])(cands_2)
+    assert xic_cuda.launches - launches == shard_ops.launches - routed > 0
+    for k in cands:
+        np.testing.assert_array_equal(cands_2[k], cands[k], err_msg=k)
+    np.testing.assert_array_equal(psm_2["precursor_idx"], psm["precursor_idx"])
+    assert len(psm["precursor_idx"]) > 50
+    for f in FEATURE_COLUMNS:
+        np.testing.assert_allclose(psm_2[f], psm[f], rtol=1e-5, atol=1e-6, err_msg=f)
+
 def test_submit_enqueues_every_batch_before_any_wait(card):
     """``_submit`` and the scoring dispatch make no call that waits for the
     device (torch's sync debug mode raises on one: a copy to pageable
@@ -380,12 +440,12 @@ def test_submit_enqueues_every_batch_before_any_wait(card):
         state = sel._submit()
         lib, lib_dev = score._upload_lib()
         chunks = [
-            score._dispatch_chunk(dev, lib_dev, score._geo_chunk(geo, b0, min(b0 + bsz, n)), geo["window_len"])
+            score._dispatch([card], [dev], [lib_dev], geo, b0, min(b0 + bsz, n), geo["window_len"])
             for b0, bsz in batch_schedule(n, score._batch_cap())
         ]
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    events = [p[1] for _, p in state["pending"]] + [p[1] for p in chunks]
+    events = [e for _, _, parts in state["pending"] + [(None, *c) for c in chunks] for _, evs in parts for e in evs]
     assert len(state["pending"]) == len(batch_schedule(len(prec["precursor_idx"]), 256)) > 1
     assert len(chunks) > 1 and all(isinstance(e, torch.cuda.Event) for e in events)
     got = [f for _, f in sel._harvest_iter(state)]

@@ -117,6 +117,10 @@ import alphadia_torch.outputs.transfer_library
 import alphadia_torch.workflow.peptidecentric.multiplexing_handler
 import alphadia_torch.workflow.peptidecentric.transfer_requant_handler
 import alphadia_torch.utils.profiling
+import alphadia_torch.parallel
+import alphadia_torch.parallel.mesh
+import alphadia_torch.parallel.distributed
+import alphadia_torch.parallel.shard_ops
 cfg = alphadia_torch.config.load_default_config()
 assert cfg["tpu"]["gather_slab"] == 256
 import tempfile
@@ -298,6 +302,7 @@ def test_fdr_and_driver_entry_points_default_to_the_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: device=None resolves to it")
     from alphadia_torch.config import load_default_config
+    from alphadia_torch.parallel.distributed import local_devices
     from alphadia_torch.search_step import SearchStep
     from alphadia_torch.workflow.peptidecentric.extraction_handler import ExtractionHandler
     from alphadia_torch.workflow.peptidecentric.peptidecentric import PeptideCentricWorkflow
@@ -310,6 +315,7 @@ def test_fdr_and_driver_entry_points_default_to_the_card(tmp_path):
         lambda: PipelinedExtraction(DiaData.__new__(DiaData), {}, {}),
         lambda: RtWindowedSearch(None, {}, {}),
         lambda: SearchStep(str(tmp_path / "step")),
+        lambda: local_devices(),
         lambda: FinetuneManager.load(PACKAGED_MODELS),
         lambda: FinetuneManager({"epochs": 1}),
     ):

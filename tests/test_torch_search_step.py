@@ -4,7 +4,8 @@
   and ``frozen_config.yaml`` (``yaml.safe_load`` of the port's file equals
   the JAX package's), ``reuse_quant``, errors collected without
   ``fail_fast``, ``fail_fast`` raising, a shared quant directory.
-- Several hosts raise, naming their slice; ``general.profile_directory``
+- A process that cannot join its group raises before any search;
+  ``general.profile_directory``
   writes a trace a raw file, and ``transfer_learning.enabled`` runs.
 - ``general.save_library`` / ``save_flat_library`` write ``speclib.hdf`` /
   ``speclib.flat.hdf`` that both packages read equal to each other's; a
@@ -40,7 +41,7 @@ import yaml
 import alphadia_torch.search_step as port_module
 import alphadia_tpu.search_step as jax_module
 from alphadia_torch.convert import frame_from_pandas
-from alphadia_torch.exceptions import BusinessError, NoLibraryAvailableError, NoPsmFoundError, NotPortedError
+from alphadia_torch.exceptions import BusinessError, NoLibraryAvailableError, NoPsmFoundError
 from alphadia_torch.library.speclib import SpecLibFlat
 from alphadia_torch.search_step import SearchStep
 from alphadia_torch.utils.parquet import read_parquet, write_parquet
@@ -111,6 +112,29 @@ def test_reuse_quant_skips_processed_runs(tmp_path, light_step, monkeypatch):
     monkeypatch.setattr(SearchStep, "_process_raw_file", lambda self, p, n, q: processed.append(n))
     step(tmp_path, config={"raw_paths": ["/data/runA.mzML", "/data/runB.mzML"], "general": {"reuse_quant": True}}).run()
     assert processed == ["runB"]
+
+
+def test_a_run_after_a_reused_file_keeps_its_seed(tmp_path, light_step, monkeypatch):
+    """File i takes the i-th draw of the step's generator over the whole
+    list of raw paths, searched or not: a reused run shifts no later run's
+    seed (the JAX package draws once a searched file, so there it would).
+    With nothing reused the draws are JAX's, one a file in order."""
+    paths = ["/data/runA.mzML", "/data/runB.mzML", "/data/runC.mzML"]
+    cfg = {"raw_paths": paths, "general": {"random_state": 123, "reuse_quant": True}}
+
+    def seeds_of(folder):
+        seen = {}
+        monkeypatch.setattr(SearchStep, "_process_raw_file", lambda self, p, n, q: seen.update({n: self._file_seeds[p]}))
+        step(folder, config=cfg).run()
+        return seen
+
+    every = seeds_of(tmp_path / "all")
+    rng = jax_module.SearchStep(str(tmp_path / "j"), config=cfg)._np_rng
+    assert every == {n: int(rng.integers(0, 2**31)) for n in ("runA", "runB", "runC")}
+    quant = tmp_path / "reuse" / QUANT_FOLDER_NAME / "runA"
+    quant.mkdir(parents=True)
+    write_parquet({"x": np.array([1])}, quant / "psm.parquet")
+    assert seeds_of(tmp_path / "reuse") == {"runB": every["runB"], "runC": every["runC"]}
 
 
 def test_errors_collected_without_fail_fast(tmp_path, light_step, monkeypatch):
@@ -266,10 +290,33 @@ def test_hdf_library_inputs_give_jax_flat_library(tmp_path, small_inputs, kind):
     assert set(np.asarray(libs["port"].precursor_df["decoy"]).tolist()) == {0, 1}
 
 
-def test_several_hosts_raise(tmp_path, light_step, monkeypatch):
+@pytest.mark.parametrize("coordinator", [None, "127.0.0.1:{port}"], ids=["no_address", "unreachable"])
+def test_a_process_that_cannot_join_its_group_raises(tmp_path, light_step, monkeypatch, coordinator):
+    """``WORLD_SIZE=2`` asks for a group: without a coordinator, or with one
+    that no process serves, the step raises before it searches anything
+    (it never searches alone)."""
+    import socket
+
+    import torch.distributed as dist
+
+    from alphadia_torch.parallel import distributed
+
+    for var in ("MASTER_ADDR", "MASTER_PORT", "ALPHADIA_TPU_COORDINATOR", "ALPHADIA_TPU_NUM_PROCESSES",
+                "ALPHADIA_TPU_PROCESS_ID", "SLURM_NTASKS", "SLURM_PROCID"):
+        monkeypatch.delenv(var, raising=False)
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotPortedError, match="multi-GPU slice"):
+    monkeypatch.setenv("RANK", "1")
+    monkeypatch.setattr(distributed, "DEFAULT_TIMEOUT_S", 3.0)
+    if coordinator is not None:
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        monkeypatch.setenv("ALPHADIA_TPU_COORDINATOR", coordinator.format(port=port))
+    searched = []
+    monkeypatch.setattr(SearchStep, "_process_raw_file", lambda self, p, n, q: searched.append(n))
+    with pytest.raises((RuntimeError, ValueError)):
         step(tmp_path, config={"raw_paths": ["/a/r1.mzML"]}).run()
+    assert searched == [] and not dist.is_initialized()
 
 
 def test_no_library_raises(tmp_path):
