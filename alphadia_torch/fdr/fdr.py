@@ -23,6 +23,7 @@ from scipy.special import expit
 
 from alphadia_torch.fdr.fragcomp import ROW, FragmentCompetition
 from alphadia_torch.fdr.qvalues import get_q_values, keep_best
+from alphadia_torch.reporting.figure import subplots
 from alphadia_torch.utils.frame import Frame, concat, n_rows, take
 
 logger = logging.getLogger(__name__)
@@ -158,14 +159,10 @@ def _finish(psm: dict, estimator: str) -> Frame:
 
 
 def _plot_fdr(psm: dict, figure_path: str) -> None:
-    """Proba histograms and targets against q-value; needs matplotlib."""
-    import matplotlib
-
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
-
+    """The proba histograms of targets and decoys (50 step bins) and the
+    targets against their q-value, written to ``figure_path`` at 120 dpi."""
     decoy = psm["_decoy"] == 1
-    fig, axes = plt.subplots(1, 2, figsize=(9, 3.5))
+    fig, axes = subplots(1, 2, figsize=(9, 3.5))
     axes[0].hist([psm["proba"][~decoy], psm["proba"][decoy]], bins=50, label=["target", "decoy"], histtype="step")
     axes[0].set_xlabel("proba")
     axes[0].legend()
@@ -176,4 +173,3 @@ def _plot_fdr(psm: dict, figure_path: str) -> None:
     axes[1].set_ylabel("# targets")
     fig.tight_layout()
     fig.savefig(figure_path, dpi=120)
-    plt.close(fig)

@@ -5,11 +5,11 @@
 - ``init_logging``: ``log.txt`` in the output directory, a previous log
   kept as ``log.bkp.txt``;
 - ``default_pipeline``: a ``Pipeline`` that fans events out to the log
-  (``LogBackend``) and to the run's ``events.jsonl`` (``JSONLBackend``,
-  absolute and relative timestamps for events, metrics and strings).
-
-The JAX package's figure backend needs matplotlib, which the port does not
-depend on; it is not ported, and the workflow says so once when it loads.
+  (``LogBackend``), to the run's ``events.jsonl`` (``JSONLBackend``,
+  absolute and relative timestamps for events, metrics and strings) and,
+  with ``save_figures``, to ``figures/<name>.png`` (``FigureBackend``: the
+  port's own figures, ``reporting/figure.py``). A figure that fails to
+  draw or write raises: the renderer has no optional dependency.
 """
 
 from __future__ import annotations
@@ -57,6 +57,7 @@ class Backend:
     def log_event(self, name: str, value=None) -> None: ...
     def log_metric(self, name: str, value: float) -> None: ...
     def log_string(self, message: str, verbosity: str = "info") -> None: ...
+    def log_figure(self, name: str, figure) -> None: ...
 
 
 class LogBackend(Backend):
@@ -111,6 +112,17 @@ class JSONLBackend(Backend):
         self._emit("string", verbosity, message)
 
 
+class FigureBackend(Backend):
+    """Each figure as ``<directory>/<name>.png`` at 150 dpi."""
+
+    def __init__(self, directory: str | Path):
+        self.directory = Path(directory)
+
+    def log_figure(self, name, figure):
+        self.directory.mkdir(parents=True, exist_ok=True)
+        figure.savefig(self.directory / f"{name}.png", dpi=150)
+
+
 class Pipeline(Backend):
     """Fan-out reporter; a context manager per run."""
 
@@ -145,7 +157,14 @@ class Pipeline(Backend):
         for b in self.backends:
             b.log_string(message, verbosity)
 
+    def log_figure(self, name, figure):
+        for b in self.backends:
+            b.log_figure(name, figure)
 
-def default_pipeline(run_dir: str | Path) -> Pipeline:
+
+def default_pipeline(run_dir: str | Path, save_figures: bool = True) -> Pipeline:
     run_dir = Path(run_dir)
-    return Pipeline([LogBackend(), JSONLBackend(run_dir / "events.jsonl")])
+    backends: list[Backend] = [LogBackend(), JSONLBackend(run_dir / "events.jsonl")]
+    if save_figures:
+        backends.append(FigureBackend(run_dir / "figures"))
+    return Pipeline(backends)

@@ -292,6 +292,17 @@ class CandidateScoring:
         geo["window_len"] = window_bucket(geo, 0, n)
         return geo
 
+    def _candidate_arrays(self, cand: dict) -> dict:
+        """The per-candidate expansion on the host: the library arrays
+        gathered by each candidate's row, with its geometry. Only the debug
+        plots read it (``search/plotting.debug_candidates``); the drivers
+        ship the library and the geometry and gather on the device."""
+        lib = self._library_arrays()
+        geo = self._candidate_geometry(cand)
+        out = {k: v[geo["rows"]] for k, v in lib.items()}
+        out.update(geo)
+        return out
+
     @staticmethod
     def _geo_chunk(geo: dict, b0: int, b1: int) -> dict:
         """The geometry of candidates [b0, b1)."""

@@ -1,12 +1,12 @@
 """Workflow base: the run's folder, reporter, raw data and managers.
 
 ``quant/<raw name>/`` under the output directory (or ``quant_path``) holds
-the run's ``events.jsonl`` and the managers' pickles.
+the run's ``events.jsonl``, the managers' pickles and, with
+``general.save_figures``, ``figures/``.
 """
 
 from __future__ import annotations
 
-import logging
 from pathlib import Path
 
 from alphadia_torch.reporting.reporting import default_pipeline
@@ -15,8 +15,6 @@ from alphadia_torch.workflow.managers.calibration_manager import CalibrationMana
 from alphadia_torch.workflow.managers.optimization_manager import OptimizationManager
 from alphadia_torch.workflow.managers.raw_file_manager import RawFileManager
 from alphadia_torch.workflow.managers.timing_manager import TimingManager
-
-logger = logging.getLogger(__name__)
 
 QUANT_FOLDER_NAME = "quant"
 
@@ -37,7 +35,7 @@ class WorkflowBase:
         base = Path(quant_path or Path(config["output_directory"]) / QUANT_FOLDER_NAME)
         self.path = base / instance_name
         self.path.mkdir(parents=True, exist_ok=True)
-        self.reporter = default_pipeline(self.path)
+        self.reporter = default_pipeline(self.path, save_figures=config["general"]["save_figures"])
         self.dia_data = None
         self.spectral_library = None
         self.calibration_manager = None
@@ -47,11 +45,6 @@ class WorkflowBase:
         )
 
     def load(self, raw_path: str, spectral_library) -> None:
-        if self.config["general"]["save_figures"]:
-            logger.warning(
-                "general.save_figures is set, but this package writes no figures: the figure backend needs "
-                "matplotlib and is not ported"
-            )
         reuse = self.config["general"]["reuse_calibration"]
         self.dia_data = RawFileManager(self.config).get_dia_data_object(raw_path)
 

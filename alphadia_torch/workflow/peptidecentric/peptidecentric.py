@@ -79,12 +79,18 @@ class PeptideCentricWorkflow(WorkflowBase):
             random_state=random_state,
             device=self.device,
         )
+        # each FDR fit draws the run's fdr.png again: it ends with the final extraction's
+        figure_path = None
+        if self.config["general"]["save_figures"]:
+            figure_path = str(self.path / "figures" / "fdr.png")
+            (self.path / "figures").mkdir(exist_ok=True)
         self.fdr_manager = FDRManager(
             feature_columns=FDR_FEATURE_COLUMNS,
             classifier_base=classifier,
             dia_cycle=self.dia_data.cycle,
             config=self.config,
             random_state=random_state,
+            figure_path=figure_path,
             device=self.device,
         )
         self.spectral_library = init_spectral_library(

@@ -87,7 +87,7 @@ Phases, in order; any failure exits non-zero:
    models on its leading 2**20 precursors on the card
    (walls, device ms, precursors/s, peak memory, the card against the CPU
    on the first 20,000), ``SimplePrediction.forward`` on the whole digest
-   or the largest leading share its host stages fit into the phase's 200 s
+   or the largest leading share its host stages fit into the phase's 60 s
    aim;
 11. Bruker ``.d`` input: (a) the zstd decoder (``csrc/zstd.cpp``) built
    with the host's C++ compiler and held to the committed fixture (the
@@ -168,9 +168,25 @@ Phases, in order; any failure exits non-zero:
    IDs and groups in [9]'s band; the PSMs against [9]'s one process); (d)
    ``general.fail_fast`` with rank 1's file unreadable: both end, rank 1
    with one process's exit code for that file;
-16. the ``{"kernels": [...]}`` line (``xic``: the launches of phases
-   [4]-[14]; ``xic_sharded``: those of [15b]'s sharded drivers; the
-   processes of [15c] and [15d] count in neither), then the card's name
+16. figures and the GUI: (a) the kernel debug plots on the card
+   (``search/plotting.debug_candidates`` on the 3D world's best candidates
+   of eight detectable targets after the port's selection: two launches of
+   the kernel, counted and each held against the plain version; its 16
+   PNGs and ``plot_dia_cycle`` of both worlds read back with the port's PNG
+   reader at their pixel sizes and with their series' colours; ms per
+   figure); (b) each run's ``quant/run_<i>/figures/fdr.png`` of phase [9]
+   (``general.save_figures`` at its default, true) read back at 1080 x 420
+   with the target and decoy colours, ``_plot_fdr``'s calls a run, ms a
+   call and share of the run's wall; (c) the port's GUI server
+   (``gui/server.py``) on a loopback port in a thread: a wrong token and a
+   foreign Host refused, the schema, browse, a search of [9]'s run 0
+   launched through ``/api/run`` as a process of its own on the card until
+   ``done``, its results summary against ``precursors.parquet``, its
+   ``fdr.png`` listed and served byte for byte, a path outside the run
+   history refused, a second run cancelled;
+17. the ``{"kernels": [...]}`` line (``xic``: the launches of phases
+   [4]-[14] and [16a]; ``xic_sharded``: those of [15b]'s sharded drivers; the
+   processes of [15c], [15d] and [16c] count in neither), then the card's name
    and power limit, then the ``{"ok": true, ...}`` line last.
 """
 
@@ -420,8 +436,9 @@ class Recorder:
     def __init__(self):
         import alphadia_torch.ops.scoring as ops_scoring
         import alphadia_torch.ops.selection as ops_selection
+        import alphadia_torch.search.plotting as plotting
 
-        self.modules = (ops_selection, ops_scoring)
+        self.modules = (ops_selection, ops_scoring, plotting)
         self.calls = []
         self.original = ops_selection.extract_xic_cuda
 
@@ -1852,6 +1869,17 @@ def phase9(root, name, card, launches, secs, tmp):
         captured["output"] = self
         return build(self, *a, **k)
 
+    import alphadia_torch.fdr.fdr as fdr_mod
+
+    plot_fdr = fdr_mod._plot_fdr
+
+    def timed_plot(*a, **k):  # each FDR fit's fdr.png, by the run being searched
+        t = time.perf_counter()
+        try:
+            return plot_fdr(*a, **k)
+        finally:
+            FDR_FIGURES["calls"].append((len(captured["runs"]) - 1, time.perf_counter() - t))
+
     class Count(logging.Handler):
         def __init__(self):
             super().__init__(logging.WARNING)
@@ -1872,6 +1900,7 @@ def phase9(root, name, card, launches, secs, tmp):
     search_step.SearchStep._process_raw_file = timed_raw
     search_step.SearchStep.load_library = timed_library
     SearchPlanOutput.build = kept_build
+    fdr_mod._plot_fdr = timed_plot
     code = 0
     try:
         with Recorder() as rec, spectra_cache_times() as ct:
@@ -1891,6 +1920,7 @@ def phase9(root, name, card, launches, secs, tmp):
         search_step.SearchStep._process_raw_file = process_raw
         search_step.SearchStep.load_library = load_library
         SearchPlanOutput.build = build
+        fdr_mod._plot_fdr = plot_fdr
         output_logger.removeHandler(counter)
     log(f"[9] the runs' mzML: {cache_split(ct.seconds)} ({name}, {card})")
     log(f"[9] alphadia-torch {' '.join(a if len(a) < 60 else '...' for a in argv)}: exit {code}, wall {wall:.4f} s")
@@ -1948,6 +1978,7 @@ def phase9(root, name, card, launches, secs, tmp):
         )
     del flush
     secs["cli"] = wall
+    FDR_FIGURES.update(out=out, run_walls=list(captured["walls"]), cli_wall=wall)
 
     got = cli_readings(out, truth, cycle_rts)
     jax = CLI_JAX_READINGS
@@ -2031,8 +2062,10 @@ LF_PREDICTION_ATOL = 1e-4
 # phase [10b]: the human reference proteome's count of canonical proteins
 # (UniProt UP000005640), the card against the CPU on the first precursors,
 # and the phase's aim in seconds, by which SimplePrediction.forward is cut
+# (120 s until the figures and the GUI of phase [16] took their share of the
+# script's time)
 PROTEOME_PREDICTION_CHECK = 20000
-PROTEOME_BUDGET_S = 120.0
+PROTEOME_BUDGET_S = 60.0
 PROTEOME_FORWARD_PROBE = 100000
 # Cut for the script's time, which went to phase [15] (the script took
 # 1,038-1,061 s of its 1,200 on slow hosts of the H100 machine): the digest
@@ -4332,6 +4365,230 @@ def phase15d(root, cli_inputs, name, card, tmp):
         raise AssertionError(f"[15d] gates failed: {failed}")
 
 
+# ---------------------------------------------------------------------------
+# phase [16]: figures and the GUI
+# ---------------------------------------------------------------------------
+FDR_FIGURES = {"calls": []}  # phase [9]'s fdr.png calls: (run, seconds); its output folder and walls
+DEBUG_CANDIDATES = 8
+GUI_DONE_S = 300.0
+FIGURE_COLOUR_TOL = 6  # per channel, 0-255: a line's fully covered pixels
+
+
+def blended(color, alpha) -> np.ndarray:
+    """The RGB (0-255) of ``color`` drawn at ``alpha`` over white."""
+    from alphadia_torch.reporting.figure import to_rgb
+
+    return (np.asarray(to_rgb(color)) * alpha + (1.0 - alpha)) * 255.0
+
+
+def colour_pixels(img, color, alpha=1.0) -> int:
+    return int((np.abs(img[..., :3].astype(np.float64) - blended(color, alpha)).max(axis=2) <= FIGURE_COLOUR_TOL).sum())
+
+
+def check_png(path, shape, colours, what) -> dict:
+    """Read a figure back with the port's reader: its pixel size and, per
+    (colour, alpha), the count of pixels drawn in it (at least 5 each)."""
+    from alphadia_torch.utils.png import read_png
+
+    img = read_png(path)
+    if img.shape != shape:
+        raise AssertionError(f"{what}: {path.name} is {img.shape}, expected {shape}")
+    counts = {f"{c}@{a}": colour_pixels(img, c, a) for c, a in colours}
+    missing = [k for k, v in counts.items() if v < 5]
+    if missing:
+        raise AssertionError(f"{what}: {path.name} lacks the colours {missing} ({counts})")
+    return counts
+
+
+def phase16a(worlds, name, card, launches, tmp):
+    """The kernel debug plots on the card: the port's selection and scoring
+    drivers on the 3D world, ``debug_candidates`` on the best candidates of
+    the first ``DEBUG_CANDIDATES`` detectable targets (the kernel's launches
+    counted and each held against the plain version), its PNGs and
+    ``plot_dia_cycle`` of both worlds read back at their pixel sizes with
+    their series' colours; the milliseconds per figure."""
+    import torch
+
+    from alphadia_torch.ops import xic_cuda
+    from alphadia_torch.reporting.figure import TAB10
+    from alphadia_torch.reporting.reporting import FigureBackend
+    from alphadia_torch.search import plotting
+    from alphadia_torch.search.scoring import CandidateScoring, ScoringConfig
+
+    dia, prec, frag = worlds[""]
+    cands = select(dia, prec, frag, DEVICE, 60.0)
+    targets = prec["precursor_idx"][prec["_truth_detectable"] & (prec["decoy"] == 0)]
+    pick = (cands["rank"] == 0) & np.isin(cands["precursor_idx"], targets)
+    best = {k: v[pick] for k, v in cands.items()}
+    scoring = CandidateScoring(dia, prec, frag, ScoringConfig(), device=DEVICE)
+    out = tmp / "debug_figures"
+    with Recorder() as rec, MethodTimes([(FigureBackend, "log_figure", "figures"),
+                                         (plotting, "debug_dense", "extraction")]) as mt:
+        rec.stage = "debug_figures"
+        torch.cuda.synchronize()
+        xic_cuda.launches = 0
+        t0 = time.perf_counter()
+        names = plotting.debug_candidates(scoring, best, n=DEBUG_CANDIDATES, figure_dir=out)
+        wall = time.perf_counter() - t0
+        n_launch = xic_cuda.launches
+    launches["debug_figures"] = n_launch
+    if n_launch != 2 or len(rec.calls) != 2:
+        raise AssertionError(f"[16a] debug_candidates: {n_launch} launches counted, {len(rec.calls)} recorded, 2 expected")
+    worst, _ = all_launches_against_plain("[16a]", "debug figures", rec.calls)
+    if len(names) != 2 * DEBUG_CANDIDATES or len(set(names)) != len(names):
+        raise AssertionError(f"[16a] {len(names)} figure names, {len(set(names))} distinct")
+    dense = plotting.debug_dense(scoring, {k: v[:DEBUG_CANDIDATES] for k, v in best.items()})
+    O2, KI = dense["fragments"].shape[2], dense["isotopes"].shape[1]
+    for i, pid in enumerate(best["precursor_idx"][:DEBUG_CANDIDATES].tolist()):
+        colours = [(TAB10[0], 0.8)] + ([("k", 1.0)] if dense["template"][i].max() > 0 else [])
+        check_png(out / f"debug_{pid}_fragments.png", (480, 600 * O2, 4), colours, "[16a]")
+        check_png(out / f"debug_{pid}_precursor.png", (480, 675, 4), [(TAB10[k], 1.0) for k in range(KI)], "[16a]")
+    n_fig = len(names)
+    log(
+        f"[16a] debug_candidates(n={DEBUG_CANDIDATES}) on the card: {n_fig} PNGs read back at 480 x {600 * O2} and "
+        f"480 x 675 with their colours; {n_launch} kernel launches (B={DEBUG_CANDIDATES}, each held against the plain "
+        f"version: max_abs={worst[0]:.3g}); wall {wall * 1e3:.2f} ms: extraction {mt.seconds['extraction'] * 1e3:.2f} ms, "
+        f"drawing and writing {mt.seconds['figures'] * 1e3 / n_fig:.2f} ms a figure ({name}, {card})"
+    )
+    for label, tag in (("3D", ""), ("4D", "_4d")):
+        d = worlds[tag][0]
+        t0 = time.perf_counter()
+        fig = plotting.plot_dia_cycle(d)
+        fig.savefig(out / f"dia_cycle{tag}.png", dpi=150)
+        ms = (time.perf_counter() - t0) * 1e3
+        colours = [("#4878d0", 0.7)] + ([("#999", 0.25)] if (d.cycle[0, :, 0, 0] < 0).any() else [])
+        counts = check_png(out / f"dia_cycle{tag}.png", (450, 1050, 4), colours, "[16a]")
+        log(f"[16a] plot_dia_cycle {label}: {d.n_slots} slots, 450 x 1050 read back, colour pixels {counts}, "
+            f"{ms:.2f} ms ({name}, {card})")
+    return worst
+
+
+def phase16b(name, card):
+    """Each run's ``fdr.png`` of phase [9] (``save_figures`` at its default,
+    true) read back at 1080 x 420 with the target and decoy colours; the
+    calls of ``_plot_fdr`` a run, their milliseconds, and their share of
+    the run's wall and of the CLI's."""
+    from alphadia_torch.reporting.figure import TAB10
+
+    calls = FDR_FIGURES["calls"]
+    out = FDR_FIGURES["out"]
+    for r, run_wall in enumerate(FDR_FIGURES["run_walls"]):
+        ms = np.array([s for run, s in calls if run == r]) * 1e3
+        if not ms.size:
+            raise AssertionError(f"[16b] run_{r}: no fdr.png was drawn")
+        counts = check_png(out / "quant" / f"run_{r}" / "figures" / "fdr.png", (420, 1080, 4),
+                           [(TAB10[0], 1.0), (TAB10[1], 1.0)], "[16b]")
+        log(
+            f"[16b] run_{r}: fdr.png drawn {ms.size} times (one a FDR fit), {ms.mean():.2f} ms a call (min "
+            f"{ms.min():.2f}, max {ms.max():.2f}), {ms.sum() / 1e3:.4f} s = {ms.sum() / 1e3 / run_wall:.4f} of the run's "
+            f"wall {run_wall:.4f} s; read back 1080 x 420, target / decoy pixels {list(counts.values())} ({name}, {card})"
+        )
+    total = sum(s for _, s in calls)
+    log(f"[16b] the figures' share of [9]'s CLI wall: {total:.4f} s of {FDR_FIGURES['cli_wall']:.4f} s = "
+        f"{total / FDR_FIGURES['cli_wall']:.4f} ({len(calls)} figures) ({name}, {card})")
+
+
+def phase16c(root, cli_inputs, name, card, tmp):
+    """The port's GUI server on a loopback port in a thread: the token and
+    Host checks, the schema, browse; a search of [9]'s run 0 launched
+    through ``/api/run`` (a process of its own, on the card) until ``done``,
+    its results and ``fdr.png`` served; a second run cancelled."""
+    import secrets
+    import urllib.error
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+    from threading import Thread
+
+    from alphadia_torch.gui.server import JobManager, make_handler
+    from alphadia_torch.utils.parquet import read_parquet
+
+    raws, lib, _, _ = cli_inputs
+    saved = {k: os.environ.get(k) for k in ("ALPHADIA_TPU_CACHE", "PYTHONPATH", "ALPHADIA_TORCH_DEVICE")}
+    os.environ["ALPHADIA_TPU_CACHE"] = str(tmp / "gui_cache")
+    os.environ["PYTHONPATH"] = os.pathsep.join(p for p in (str(root), saved["PYTHONPATH"]) if p)
+    os.environ.pop("ALPHADIA_TORCH_DEVICE", None)  # the child runs on the card
+    token = secrets.token_urlsafe(16)
+    jobs = JobManager()
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(jobs, token))
+    Thread(target=httpd.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+
+    def call(path, payload=None, tok=token, host=None, raw=False):
+        headers = {"X-Auth-Token": tok, **({"Host": host} if host else {})}
+        data = None if payload is None else json.dumps(payload).encode()
+        req = urllib.request.Request(base + path, data=data, headers=headers, method="GET" if data is None else "POST")
+        try:
+            with urllib.request.urlopen(req, timeout=30) as r:
+                body = r.read()
+                return r.status, body if raw else json.loads(body)
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read())
+
+    def wait(states, seconds):
+        t0 = time.perf_counter()
+        st = {}
+        while time.perf_counter() - t0 < seconds:
+            st = call("/api/status")[1]
+            if st["state"] in states:
+                break
+            time.sleep(0.5)
+        return st, time.perf_counter() - t0
+
+    try:
+        checks = {
+            "wrong token 403": call("/api/schema", tok="wrong")[0] == 403,
+            "foreign Host 403": call("/api/schema", host="evil.example:8855")[0] == 403,
+        }
+        schema = call("/api/schema")[1]
+        n_params = sum(len(s["parameters"]) for s in schema["config"])
+        checks["schema > 80 parameters"] = n_params > 80
+        entries = {e["name"]: e for e in call(f"/api/browse?path={raws[0].parent}")[1]["entries"]}
+        checks["browse marks .mzML raw"] = entries[raws[0].name]["raw"]
+        out = tmp / "gui_out"
+        payload = {"raw_path_list": [str(raws[0])], "library": str(lib), "output_directory": str(out),
+                   "config": {"general": {"random_state": 0}}}
+        code, res = call("/api/run", payload)
+        if code != 200:
+            raise AssertionError(f"[16c] /api/run: {code} {res}")
+        st, run_wall = wait(("done", "failed", "cancelled"), GUI_DONE_S)
+        if st.get("state") != "done":
+            raise AssertionError(f"[16c] the GUI's search ended {st.get('state')}: {st.get('log_tail', '')[-3000:]}")
+        results = call("/api/results?output=" + str(out))[1]
+        prec = read_parquet(out / "precursors.parquet")
+        fdr_png = out / "quant" / raws[0].stem / "figures" / "fdr.png"
+        checks["summary.precursors = rows of precursors.parquet"] = (
+            results["summary"]["precursors"] == len(next(iter(prec.values()))) > 0)
+        checks["figures lists fdr.png"] = str(fdr_png) in results["figures"]
+        code, body = call("/api/figure?path=" + str(fdr_png), raw=True)
+        checks["/api/figure serves fdr.png byte for byte"] = code == 200 and body == fdr_png.read_bytes()
+        checks["a path outside the history 403"] = call("/api/figure?path=" + str(FDR_FIGURES["out"] / "quant" / "run_0" / "figures" / "fdr.png"))[0] == 403
+        code, res = call("/api/run", {**payload, "output_directory": str(tmp / "gui_out2")})
+        time.sleep(2.0)
+        code_c, res_c = call("/api/cancel", {})
+        st2, cancel_wall = wait(("done", "failed", "cancelled"), 60.0)
+        checks["a cancelled run ends cancelled"] = code == 200 and code_c == 200 and st2.get("state") == "cancelled"
+        failed = [k for k, ok in checks.items() if not ok]
+        log(
+            f"[16c] GUI on {base}: {n_params} parameters; the search of {raws[0].name} through /api/run (a process on "
+            f"the card) done in {run_wall:.2f} s, {results['summary']['precursors']} precursors, {len(results['figures'])} "
+            f"figures listed; the second run cancelled after 2 s, ended {st2.get('state')} {cancel_wall:.2f} s later; "
+            f"checks {json.dumps(checks)} ({name}, {card})"
+        )
+        if failed:
+            raise AssertionError(f"[16c] GUI checks failed: {failed}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        if jobs._proc is not None and jobs._proc.poll() is None:
+            jobs.cancel()
+            jobs._proc.wait(timeout=60)
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["--cli-process"]:  # one process of phase [15c] / [15d]
@@ -4560,10 +4817,19 @@ def main(argv=None) -> int:
         phase15c(root, cli_inputs, name, card, secs, tmp)
         phase15d(root, cli_inputs, name, card, tmp)
         log(f"[15] phase [15] took {time.perf_counter() - t15:.2f} s; kernel launches per run of the main paths "
-            f"({sum(launches.values())} in all, the xic entry's): {json.dumps(launches)}; through the sharded route "
+            f"({sum(launches.values())} in all): {json.dumps(launches)}; through the sharded route "
             f"in [15b] {route['launches']} (the xic_sharded entry's) ({name}, {card})")
 
-    # ---- 16. summary lines --------------------------------------------------
+        # ---- 16. figures and the GUI --------------------------------------------
+        t16 = time.perf_counter()
+        w = phase16a(worlds, name, card, launches, tmp)
+        max_abs_err = max(max_abs_err, w[0])
+        phase16b(name, card)
+        phase16c(root, cli_inputs, name, card, tmp)
+        log(f"[16] phase [16] took {time.perf_counter() - t16:.2f} s; kernel launches per run "
+            f"({sum(launches.values())} in all, the xic entry's): {json.dumps(launches)} ({name}, {card})")
+
+    # ---- 17. summary lines --------------------------------------------------
     kernels = {
         "kernels": [
             {

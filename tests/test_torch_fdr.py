@@ -218,3 +218,74 @@ def test_small_and_one_sided_sets():
     out = perform_fdr(clf, cols, _frame(t.iloc[:0]), _frame(d))
     assert out.attrs["fdr_estimator"] == "no_target" and (out["qval"] == 1.0).all()
     assert not clf.fitted
+
+
+def _captured_figures(monkeypatch, cls):
+    """Each figure that ``cls.savefig`` writes, kept as it is written."""
+    kept = []
+    save = cls.savefig
+
+    def keep(self, *a, **k):
+        kept.append((self, a, k))
+        return save(self, *a, **k)
+
+    monkeypatch.setattr(cls, "savefig", keep)
+    return kept
+
+
+@pytest.mark.parametrize("decoys", ["all", "none"])
+def test_fdr_figure_draws_what_jax_draws(tmp_path, monkeypatch, decoys):
+    """``fdr.png`` of the same PSMs: the two step histograms' edges, counts
+    and outlines, the targets' q-value curve, the limits, the labels, and
+    the file's pixel size (1080 x 420 at 120 dpi)."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.figure
+    from PIL import Image
+
+    import alphadia_torch.reporting.figure as port_figure
+    from alphadia_torch.utils.png import read_png
+
+    df = _labelled()
+    frag = _fragments(df)
+    kw = dict(competitive=True, dia_cycle=_cycle(), random_state=0)
+    t, d = df[df["decoy"] == 0], df[df["decoy"] == 1]
+    if decoys == "none":  # the no-decoy path: an empty decoy histogram
+        d = d.iloc[:0]
+    jax_kept = _captured_figures(monkeypatch, matplotlib.figure.Figure)
+    port_kept = _captured_figures(monkeypatch, port_figure.Figure)
+    theirs = jax_perform_fdr(StubClassifier(), ["f0", "f1"], t, d, df_fragments=frag,
+                             figure_path=str(tmp_path / "jax.png"), **kw)
+    ours = perform_fdr(StubClassifier(), ["f0", "f1"], _frame(t), _frame(d), df_fragments=_frame(frag),
+                       figure_path=str(tmp_path / "port.png"), **kw)
+    assert_same_rows(ours, theirs)
+    assert len(jax_kept) == len(port_kept) == 1
+    (jfig, _, jkw), (pfig, _, pkw) = jax_kept[0], port_kept[0]
+    assert jkw["dpi"] == pkw["dpi"] == 120
+    jh, jq = jfig.axes
+    ph, pq = pfig.axes
+    steps = [p for p in ph.primitives if p["kind"] == "step"]
+    assert len(steps) == len(jh.patches) == 2
+    for s, patch in zip(steps, jh.patches):  # decoys first: matplotlib adds the last data set first
+        xy = patch.get_xy()[: len(s["x"])]
+        np.testing.assert_array_equal(s["x"], xy[:, 0])
+        np.testing.assert_array_equal(s["y"], xy[:, 1])
+        assert s["label"] == patch.get_label()
+        assert s["color"] == matplotlib.colors.to_hex(patch.get_edgecolor())
+    # the counts per edge, read back from the outline
+    np.testing.assert_array_equal(steps[1]["counts"], steps[1]["y"][1:-1:2])
+    assert steps[1]["counts"].sum() == (ours["_decoy"] == 0).sum()
+    assert steps[0]["counts"].sum() == (ours["_decoy"] == 1).sum()
+    (line,) = jq.lines
+    (curve,) = [p for p in pq.primitives if p["kind"] == "line"]
+    np.testing.assert_array_equal(np.column_stack([curve["x"], curve["y"]]), line.get_xydata())
+    assert pq.get_xlim() == jq.get_xlim() == (0.0, 0.05)
+    np.testing.assert_allclose(pq.get_ylim(), jq.get_ylim(), rtol=1e-12)
+    np.testing.assert_allclose(ph.get_xlim(), jh.get_xlim(), rtol=1e-12)
+    np.testing.assert_allclose(ph.get_ylim(), jh.get_ylim(), rtol=1e-12)
+    assert (ph.xlabel, pq.xlabel, pq.ylabel) == (jh.get_xlabel(), jq.get_xlabel(), jq.get_ylabel())
+    assert [lab for lab, _ in ph.legend_entries()] == [x.get_text() for x in jh.get_legend().get_texts()]
+    with Image.open(tmp_path / "jax.png") as im:
+        assert im.size == (1080, 420)
+    assert read_png(tmp_path / "port.png").shape == (420, 1080, 4)

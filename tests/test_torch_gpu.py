@@ -10,8 +10,9 @@ drivers over the card named twice against one device, classifier fits on the
 card (one held to a fit on the CPU), the per-run workflow (load ->
 optimization -> extraction), ``SearchStep`` (mzML and TSV library in,
 ``psm.parquet`` out; and from the committed Bruker ``.d`` and alphaRaw
-``.hdf``) and the CLI on two runs (``alphadia-torch``, the
-cross-run tables out) on the card, each held to the same run on the CPU.
+``.hdf``), the CLI on two runs (``alphadia-torch``, the
+cross-run tables out) and the kernel debug plots on the card, each held to
+the same run on the CPU.
 
 Marked ``gpu``: each test skips where no CUDA card is present, and the
 decision is taken inside the test. On the card the file needs neither JAX
@@ -509,6 +510,34 @@ def test_workflow_on_card_matches_the_cpu(card, tmp_path):
     assert cmp["steps"][0] == cmp["steps"][1]
     assert cmp["tolerance_rel"] <= 0.05
     assert cmp["jaccard"] >= 0.95 and cmp["ids"][1] > 100
+
+
+def test_debug_candidates_on_card_match_the_cpu(card, tmp_path):
+    """The kernel debug plots of eight candidates on the card against the
+    same on the CPU: two launches of the kernel, the dense fragment and
+    isotope traces and the template at the intensity tolerance, the same
+    figure names and files at the same pixel sizes."""
+    from alphadia_torch.search import plotting
+    from alphadia_torch.utils.png import read_png
+
+    spectra, prec, frag = make_synthetic_dia(SyntheticConfig(n_peptides=40, n_windows=4, n_cycles=120, seed=3))
+    dia = DiaData.from_spectra(spectra)
+    cands = CandidateSelection(dia, prec, frag, SelectionConfig(rt_tolerance=40.0, batch_size=64), device="cpu")()
+    best = {k: v[cands["rank"] == 0] for k, v in cands.items()}
+    dense, names = {}, {}
+    for device in ("cuda", "cpu"):
+        scoring = CandidateScoring(dia, prec, frag, ScoringConfig(batch_size=64), device=device)
+        before = xic_cuda.launches
+        dense[device] = plotting.debug_dense(scoring, {k: v[:8] for k, v in best.items()})
+        assert xic_cuda.launches - before == (2 if device == "cuda" else 0)
+        names[device] = plotting.debug_candidates(scoring, best, n=8, figure_dir=tmp_path / device)
+    assert names["cuda"] == names["cpu"] and len(names["cpu"]) == 16
+    for key in ("fragments", "isotopes", "template"):
+        np.testing.assert_allclose(dense["cuda"][key], dense["cpu"][key], rtol=1e-5, atol=1e-3, err_msg=key)
+    assert dense["cpu"]["fragments"].max() > 0
+    for name in names["cpu"]:
+        a, b = read_png(tmp_path / "cuda" / f"{name}.png"), read_png(tmp_path / "cpu" / f"{name}.png")
+        assert a.shape == b.shape
 
 
 def test_search_step_on_card_matches_the_cpu(card, tmp_path):

@@ -1,7 +1,8 @@
 """The port imports without JAX, the JAX package, pandas or the other
 packages it does not depend on (pyarrow, scikit-learn, xxhash, matplotlib,
-yaml, h5py, lxml, zstandard) and reads a Bruker ``.d`` and writes and reads
-HDF without them, and its entry points refuse to run on a missing card
+PIL, yaml, h5py, lxml, zstandard), reads a Bruker ``.d``, writes and reads
+HDF, draws its figures as PNG and builds the GUI's schema without them, and
+its entry points refuse to run on a missing card
 unless the CPU is asked for. Its sources name the JAX package only inside
 the HDF format identifiers that both packages write and read."""
 
@@ -20,7 +21,7 @@ _BLOCKED_IMPORT = """
 import importlib.abc, sys
 BLOCKED = (
     "jax", "jaxlib", "flax", "optax", "alphadia_tpu", "pandas",
-    "sklearn", "xxhash", "matplotlib", "yaml", "h5py", "lxml", "zstandard", "pyarrow",
+    "sklearn", "xxhash", "matplotlib", "PIL", "yaml", "h5py", "lxml", "zstandard", "pyarrow",
 )
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
@@ -121,6 +122,12 @@ import alphadia_torch.parallel
 import alphadia_torch.parallel.mesh
 import alphadia_torch.parallel.distributed
 import alphadia_torch.parallel.shard_ops
+import alphadia_torch.utils.png
+import alphadia_torch.reporting.figure
+import alphadia_torch.search.plotting
+import alphadia_torch.gui
+import alphadia_torch.gui.schema
+import alphadia_torch.gui.server
 cfg = alphadia_torch.config.load_default_config()
 assert cfg["tpu"]["gather_slab"] == 256
 import tempfile
@@ -141,6 +148,11 @@ with tempfile.TemporaryDirectory() as d:
     assert list(back.precursor_df["sequence"]) == ["PEPTIDE"] and back.fragment_df["mz"].tolist() == [1.0, 1.0, 1.0]
     data = Path(alphadia_torch.__file__).parent / "testing" / "data"
     assert len(load_raw_file(data / "hdf_alpharaw_latest.hdf").mz) > 1024  # h5py's libver="latest"
+    dia = alphadia_torch.rawdata.DiaData.from_spectra(spectra)
+    alphadia_torch.search.plotting.plot_dia_cycle(dia).savefig(Path(d) / "cycle.png", dpi=150)
+    assert alphadia_torch.utils.png.read_png(Path(d) / "cycle.png").shape == (450, 1050, 4)
+schema = alphadia_torch.gui.schema.build_schema()
+assert sum(len(s["parameters"]) for s in schema["config"]) > 80
 loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not loaded, loaded
 print("ok")
