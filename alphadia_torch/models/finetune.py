@@ -263,8 +263,10 @@ class FinetuneManager:
         self.metrics: dict[str, dict] = {}
 
     @classmethod
-    def load(cls, directory: str | Path, device=None) -> "FinetuneManager":
-        obj = cls(device=device)
+    def load(cls, directory: str | Path, config: dict | None = None, device=None) -> "FinetuneManager":
+        """The models of ``directory/models.pkl``, fine-tuned further with
+        ``config``'s training settings."""
+        obj = cls(config, device=device)
         state = load_models_pickle(Path(directory) / "models.pkl")
         obj.variables = state["variables"]
         for name, sd in property_models_from_jax(obj.variables).items():

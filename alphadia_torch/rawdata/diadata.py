@@ -22,6 +22,7 @@ import torch
 
 from alphadia_torch.constants.settings import NO_MOBILITY_VALUE
 from alphadia_torch.rawdata.dia_cycle import determine_dia_cycle
+from alphadia_torch.rawdata.peakstore import build_peak_store, build_peak_store_numpy
 from alphadia_torch.rawdata.source import SpectrumData
 from alphadia_torch.utils.device import bucket_count, resolve_device
 
@@ -65,6 +66,8 @@ class DiaData:
     ghost_width: float = 0.25  # must exceed the largest ppm half-window (Th)
     peak_is_ghost: np.ndarray = None
     _n_canonical: int = 0
+    # the C++ builder (csrc/peakstore.cpp); False: its plain numpy version
+    use_native: bool = True
 
     mz_min: float = 0.0
     mz_max: float = 0.0
@@ -80,6 +83,7 @@ class DiaData:
         coarse_bin_width: float = 1.0,
         n_scan_bins: int = 8,
         mobility_range: tuple[float, float] | None = None,
+        use_native: bool = True,
     ) -> "DiaData":
         """Cycle-align and tensorize a raw file: drop non-DIA MS1, detect the
         cycle, truncate to whole cycles, build the slab layout.
@@ -133,92 +137,42 @@ class DiaData:
             quad_min_mz=quad_min,
             quad_max_mz=quad_max,
             coarse_bin_width=coarse_bin_width,
+            use_native=use_native,
         )
         obj._build_peak_store(spectra)
         return obj
 
     def _build_peak_store(self, spectra: SpectrumData) -> None:
         """Sort peaks by (slot, coarse m/z bin, cycle, m/z), duplicate
-        bin-edge peaks as ghosts, and build ``cell_start``.
+        bin-edge peaks as ghosts, and build ``cell_start``
+        (``rawdata/peakstore``: the C++ builder, or with ``use_native=False``
+        its plain numpy version; the same arrays).
 
         The order is that of the JAX package's default (native) builder:
         bins in float64, and within a cell the spectrum's own m/z order,
         ghosts among the canonical peaks. A query's slab is cut at ``slab``
         peaks and its per-cycle sums depend on the order, so another order
         within a cell changes the selection scores where slabs overflow."""
-        n_slots, n_cycles = self.n_slots, self.n_cycles
         if len(spectra.mz):
             self.mz_min = float(spectra.mz.min())
             self.mz_max = float(spectra.mz.max())
         bin_w = self.coarse_bin_width
         self.bin_mz_min = float(np.floor(self.mz_min / bin_w) * bin_w)
-        n_bins = max(1, int(np.ceil((self.mz_max + bin_w - self.bin_mz_min) / bin_w)))
+        self.n_bins = max(1, int(np.ceil((self.mz_max + bin_w - self.bin_mz_min) / bin_w)))
 
-        counts = (spectra.peak_stop_idx - spectra.peak_start_idx).astype(np.int64)
-        # spectrum i = cycle * n_slots + slot
-        spec_of_peak = np.repeat(np.arange(spectra.n_spectra), counts)
-        cycle_of_peak = (spec_of_peak // n_slots).astype(np.int64)
-        slot_of_peak = (spec_of_peak % n_slots).astype(np.int64)
-
-        def bin_of(mz):
-            return np.clip(
-                ((mz - self.bin_mz_min) / bin_w).astype(np.int64), 0, n_bins - 1
-            )
-
-        mz64 = spectra.mz.astype(np.float64)
-        bin_of_peak = bin_of(mz64)
-        up = bin_of(mz64 + self.ghost_width)
-        dn = bin_of(mz64 - self.ghost_width)
-        ghosts_up = np.nonzero(up != bin_of_peak)[0]
-        ghosts_dn = np.nonzero(dn != bin_of_peak)[0]
-
-        def with_ghosts(a):
-            return np.concatenate([a, a[ghosts_up], a[ghosts_dn]])
-
-        all_mz = with_ghosts(spectra.mz)
-        all_int = with_ghosts(spectra.intensity)
-        all_slot = with_ghosts(slot_of_peak)
-        all_cycle = with_ghosts(cycle_of_peak)
-        all_bin = np.concatenate([bin_of_peak, up[ghosts_up], dn[ghosts_dn]])
-        is_ghost = np.zeros(len(all_mz), dtype=bool)
-        is_ghost[len(spectra.mz) :] = True
+        spec_start = np.zeros(spectra.n_spectra + 1, np.int64)
+        np.cumsum((spectra.peak_stop_idx - spectra.peak_start_idx).astype(np.int64), out=spec_start[1:])
+        scanbin = None
         if self.has_mobility:
             S = self.n_scan_bins
             span = max(self.mobility_max - self.mobility_min, 1e-9)
-            sb = np.clip(
-                ((spectra.mobility - self.mobility_min) / span * S).astype(np.int32),
-                0,
-                S - 1,
-            )
-            all_scanbin = with_ghosts(sb)
-        else:
-            all_scanbin = np.zeros(len(all_mz), np.int32)
-
-        key = (all_slot * n_bins + all_bin) * n_cycles + all_cycle
-        # within a cell by source peak: m/z ascending, ghosts in their place
-        order = np.lexsort((with_ghosts(np.arange(len(spectra.mz))), key))
-
-        n_cells = n_slots * n_bins * n_cycles
-        cell_off = np.zeros(n_cells + 1, dtype=np.int64)
-        np.cumsum(np.bincount(key, minlength=n_cells), out=cell_off[1:])
-        # trailing column: end of the last cycle of each (slot, bin) row
-        cs = cell_off[:-1].reshape(n_slots, n_bins, n_cycles)
-        ends = cell_off[1:].reshape(n_slots, n_bins, n_cycles)[:, :, -1:]
-        self.cell_start = np.concatenate([cs, ends], axis=2).astype(np.int32)
-
-        pad = 1024
-        self.peak_mz = np.concatenate(
-            [all_mz[order].astype(np.float32), np.full(pad, np.float32(np.inf))]
-        )
-        self.peak_intensity = np.concatenate(
-            [all_int[order].astype(np.float32), np.zeros(pad, np.float32)]
-        )
-        self.peak_is_ghost = np.concatenate([is_ghost[order], np.zeros(pad, bool)])
-        self.peak_scanbin = np.concatenate(
-            [all_scanbin[order].astype(np.int32), np.zeros(pad, np.int32)]
+            scanbin = np.clip(((spectra.mobility - self.mobility_min) / span * S).astype(np.int32), 0, S - 1)
+        build = build_peak_store if self.use_native else build_peak_store_numpy
+        (self.peak_mz, self.peak_intensity, self.peak_is_ghost, self.peak_scanbin, self.cell_start) = build(
+            spectra.mz, spectra.intensity, spec_start, self.n_slots, self.n_cycles, self.bin_mz_min, bin_w,
+            self.n_bins, self.ghost_width, scanbin=scanbin,
         )
         self._n_canonical = len(spectra.mz)
-        self.n_bins = n_bins
 
     @property
     def n_peaks(self) -> int:

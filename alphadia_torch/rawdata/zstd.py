@@ -2,10 +2,9 @@
 
 The card machine has no zstd package, so the port decodes the frames of
 Bruker TDF files itself. The library is built at first use with the host's
-C++ compiler (``c++`` or ``g++`` on ``PATH``) into ``build/alphadia_torch/``
-(the XIC kernel's build directory),
-named by a hash of the source and flags, and replaced atomically. Without a
-compiler, or when the build fails, the calls raise: there is no other path.
+C++ compiler (``utils/cxx.build_library``: ``build/alphadia_torch/``, named
+by a hash of the source and flags). Without a compiler, or when the build
+fails, the calls raise: there is no other path.
 
 - ``decompress(data, expected_size=None)``: every frame of ``data``.
 - ``decompress_frames(buffer, offsets, lengths, expected_sizes, threads)``:
@@ -19,16 +18,12 @@ Malformed input raises ``ZstdError`` with the decoder's message.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
 from pathlib import Path
 
 import numpy as np
 
-from alphadia_torch.ops.xic_cuda import build_dir
+from alphadia_torch.utils.cxx import build_library
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "zstd.cpp"
 CXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC", "-pthread"]
@@ -47,29 +42,10 @@ class ZstdError(ValueError):
         self.reason, self.index = reason, index
 
 
-def _compiler() -> str:
-    for name in ("c++", "g++"):
-        path = shutil.which(name)
-        if path:
-            return path
-    raise RuntimeError("no C++ compiler (c++ or g++) on PATH: the zstd decoder is built from csrc/zstd.cpp")
-
-
 def build() -> Path:
     """Compile ``csrc/zstd.cpp`` once per source content and flags; return
     the shared library's path."""
-    digest = hashlib.sha1(SOURCE.read_bytes() + " ".join(CXX_FLAGS).encode()).hexdigest()[:12]
-    out = build_dir() / f"libzstd_{digest}.so"
-    if out.exists():
-        return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    proc = subprocess.run([_compiler(), *CXX_FLAGS, "-o", str(tmp), str(SOURCE)], capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"building the zstd decoder failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out
+    return build_library(SOURCE, CXX_FLAGS, "libzstd", "the zstd decoder")
 
 
 def _library():

@@ -128,6 +128,10 @@ import alphadia_torch.search.plotting
 import alphadia_torch.gui
 import alphadia_torch.gui.schema
 import alphadia_torch.gui.server
+import alphadia_torch.utils.cxx
+import alphadia_torch.rawdata.peakstore
+import alphadia_torch.scripts.train_default_classifier
+import alphadia_torch.scripts.train_property_models
 cfg = alphadia_torch.config.load_default_config()
 assert cfg["tpu"]["gather_slab"] == 256
 import tempfile

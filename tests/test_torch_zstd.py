@@ -23,6 +23,7 @@ from hypothesis import strategies as st
 from alphadia_torch.rawdata import zstd
 from alphadia_torch.testing.tdf_writer import xxh64 as writer_xxh64
 from alphadia_torch.testing.tdf_writer import zstd_frame
+from alphadia_torch.utils import cxx
 from torch_tdf_fixture import DATA, frame_payloads
 
 pytest_plugins = ("torch_port_plugin",)
@@ -268,6 +269,6 @@ def test_builds_with_this_machines_compiler(tmp_path, monkeypatch):
 
 def test_no_compiler_raises(tmp_path, monkeypatch):
     monkeypatch.setenv("ALPHADIA_TORCH_BUILD_DIR", str(tmp_path))
-    monkeypatch.setattr(zstd.shutil, "which", lambda name: None)
+    monkeypatch.setattr(cxx.shutil, "which", lambda name: None)
     with pytest.raises(RuntimeError, match="no C\\+\\+ compiler"):
         zstd.build()
