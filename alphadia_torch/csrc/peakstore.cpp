@@ -1,6 +1,6 @@
 // Peak-store builder: one raw file's peaks sorted into the (slot, coarse m/z
 // bin, cycle) slab layout that the XIC kernel reads, with bin-edge peaks
-// duplicated as ghosts and the int32 cell index beside them.
+// duplicated as ghosts and the cell index beside them.
 //
 // Host C++17 with a plain C interface (loaded with ctypes by
 // rawdata/peakstore.py). A counting sort over the cell key
@@ -21,8 +21,9 @@
 //
 // Bins are computed in float64 and truncated toward zero as numpy's
 // astype(int64) does on x86-64 (NaN and values outside int64 become
-// INT64_MIN), then clipped to [0, n_bins). The cell index is int32: past
-// 2**31 stored peaks its offsets wrap, as numpy's astype(int32) wraps them.
+// INT64_MIN), then clipped to [0, n_bins). The cell index is written as
+// int32 or int64 (index_bytes 4 or 8), as the caller chose from the stored
+// total: int32 only while every offset fits it, so no offset wraps.
 
 #include <algorithm>
 #include <cstdint>
@@ -152,15 +153,18 @@ int64_t peakstore_count(const float* mz, const int64_t* spec_start, int64_t n_sp
 }
 
 // Writes every entry at its cell's place and the cell index cell_start
-// (n_slots * n_bins rows of n_cycles + 1 offsets, the last the row's end).
-// scanbin may be null (3D data): out_scanbin is then 0. Returns 0, or -1
-// when a thread could not be set up.
+// (n_slots * n_bins rows of n_cycles + 1 offsets, the last the row's end),
+// int32 with index_bytes 4 and int64 with 8. scanbin may be null (3D data):
+// out_scanbin is then 0. Returns 0, or -1 when a thread could not be set
+// up, for another index_bytes, or for int32 with a total past INT32_MAX.
 int peakstore_scatter(const float* mz, const float* intensity, const int32_t* scanbin,
                       const int64_t* spec_start, int64_t n_spectra, int64_t n_slots, int64_t n_cycles,
                       double bin_mz_min, double bin_width, int64_t n_bins, double ghost, const int64_t* cell_off,
-                      float* out_mz, float* out_int, uint8_t* out_ghost, int32_t* out_scanbin, int32_t* cell_start,
-                      int threads) {
+                      float* out_mz, float* out_int, uint8_t* out_ghost, int32_t* out_scanbin, void* cell_start,
+                      int index_bytes, int threads) {
   try {
+    const int64_t n_rows = n_slots * n_bins;
+    if (!(index_bytes == 8 || (index_bytes == 4 && cell_off[n_rows * n_cycles] <= INT32_MAX))) return -1;
     const Grid g{n_slots, n_cycles, n_bins, bin_mz_min, bin_width, ghost};
     const int nt = clamp_threads(threads, n_spectra);
     const std::vector<int64_t> first = spectrum_ranges(spec_start, n_spectra, nt);
@@ -192,13 +196,16 @@ int peakstore_scatter(const float* mz, const float* intensity, const int32_t* sc
         }
       }
     });
-    const int64_t n_rows = n_slots * n_bins;
     const int nr = clamp_threads(threads, n_rows * (n_cycles + 1) / (1 << 16));
     run_parts(nr, [&](int t) {
       for (int64_t r = split(n_rows, nr, t); r < split(n_rows, nr, t + 1); ++r) {
-        int32_t* row = cell_start + r * (n_cycles + 1);
         const int64_t* off = cell_off + r * n_cycles;
-        for (int64_t c = 0; c <= n_cycles; ++c) row[c] = static_cast<int32_t>(static_cast<uint32_t>(off[c]));
+        if (index_bytes == 8) {
+          std::copy(off, off + n_cycles + 1, static_cast<int64_t*>(cell_start) + r * (n_cycles + 1));
+        } else {
+          int32_t* row = static_cast<int32_t*>(cell_start) + r * (n_cycles + 1);
+          for (int64_t c = 0; c <= n_cycles; ++c) row[c] = static_cast<int32_t>(off[c]);
+        }
       }
     });
     return 0;

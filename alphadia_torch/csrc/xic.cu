@@ -45,7 +45,15 @@
 // - a launch makes 128 warps for each SM (some four waves of the ~30 warps
 //   that the ring's shared memory lets reside), each with as many queries
 //   as that takes: warps with fewer queries make more edge loads per query,
-//   warps with more sum more pieces one after another.
+//   warps with more sum more pieces one after another;
+// - the cell index is int32, or int64 for a store of 2**31 entries or more
+//   (rawdata/peakstore.cell_index_dtype): its type is a template parameter
+//   (Index), and every offset into the store (the window edges, the slab's
+//   clamp to the store's end, a piece's start and aligned start) is held in
+//   Index. The int32 instantiation is the kernel as it was before the int64
+//   one; the int64 one loads 8 B per window edge instead of 4 and does the
+//   same sums in the same order. A width the library was not built for is
+//   refused at the launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -75,7 +83,7 @@ struct XicParams {
   const unsigned short* cycle;  // [n_peaks] cycle mod 2**16
   const short* scanbin;         // [n_peaks] or null (no scan window)
   long long n_peaks;            // a multiple of 8
-  const int* cell_start;  // [n_slots * n_bins, row_len]
+  const void* cell_start;  // [n_slots * n_bins, row_len] of Index
   long long row_len;
   int n_slots, n_bins, n_cycles;
   const int* slot_idx;     // [B, Q], -1 = masked query
@@ -168,12 +176,16 @@ __device__ __forceinline__ void take_cells(float* acc, int w, int vw, float (&it
 
 // one piece of the group's slabs: query j of the group, peaks
 // [start, start + count) of the store, staged from the aligned a0
+template <typename Index>
 struct Piece {
-  int j, start, count, a0;
+  int j;
+  Index start;
+  int count;
+  Index a0;
   bool last;  // the query's last piece
 };
 
-template <bool WITH_MZ, bool SCAN>
+template <bool WITH_MZ, bool SCAN, typename Index>
 __global__ void __launch_bounds__(kWarps * 32)
 xic_kernel(const XicParams p) {
   constexpr int kPlanes = WITH_MZ ? 2 : 1;
@@ -211,11 +223,12 @@ xic_kernel(const XicParams p) {
   // ---- round trip 2: the window edges of the valid ones ---------------
   // the ghost peaks of the store put the whole ppm window into the bin of
   // the query centre: one row, one slab
-  int r0 = 0, r_end = 0;
+  Index r0 = 0, r_end = 0;
   if (slot >= 0) {
     int bin = (int)floorf(__fdiv_rn(__fsub_rn(qmz, p.bin_mz_min), p.bin_width));
     bin = min(max(bin, 0), p.n_bins - 1);
-    const int* cs = p.cell_start + ((long long)min(slot, p.n_slots - 1) * p.n_bins + bin) * p.row_len;
+    const Index* cs = static_cast<const Index*>(p.cell_start) +
+                      ((long long)min(slot, p.n_slots - 1) * p.n_bins + bin) * p.row_len;
     r0 = __ldg(cs + min(max(c0, 0), p.n_cycles));
     r_end = __ldg(cs + min(max(c0 + W, 0), p.n_cycles));
   }
@@ -238,7 +251,8 @@ xic_kernel(const XicParams p) {
   };
   // masked queries' zero rows go out while the window edges are on their way
   zero_rows(__ballot_sync(kFull, mine && slot < 0));
-  const int len = slot >= 0 ? (int)min((long long)min(max(r_end - r0, 0), p.slab), max(p.n_peaks - r0, 0LL)) : 0;
+  const int len =
+      slot >= 0 ? (int)min((long long)min(max(r_end - r0, (Index)0), (Index)p.slab), max(p.n_peaks - r0, 0LL)) : 0;
 
   // ---- the live slabs as a list of pieces ------------------------------
   const int n_pieces = (len + kPiece - 1) / kPiece;
@@ -252,20 +266,20 @@ xic_kernel(const XicParams p) {
   const int total = __shfl_sync(kFull, incl, 31);
 
   auto piece = [&](int i) {
-    Piece pc;
+    Piece<Index> pc;
     pc.j = __popc(__ballot_sync(kFull, incl <= i));  // first lane whose pieces reach past i
     const int k = i - __shfl_sync(kFull, excl, pc.j);
     const int n = __shfl_sync(kFull, len, pc.j);
-    pc.start = __shfl_sync(kFull, r0, pc.j) + k * kPiece;
+    pc.start = __shfl_sync(kFull, r0, pc.j) + (Index)k * kPiece;
     pc.count = min(kPiece, n - k * kPiece);
-    pc.a0 = pc.start & ~7;
+    pc.a0 = pc.start & ~(Index)7;
     pc.last = (k + 1) * kPiece >= n;
     return pc;
   };
   auto stage = [&](int i) {
     if (i < total) {
-      const Piece pc = piece(i);
-      const int span = ((pc.start + pc.count + 7) & ~7) - pc.a0;  // <= kSlot
+      const Piece<Index> pc = piece(i);
+      const int span = (int)(((pc.start + pc.count + 7) & ~(Index)7) - pc.a0);  // <= kSlot
       const int s = (i % kDepth) * kSlot;
       for (int c = lane; c < span / 2; c += 32) cp_async16(ring_pk + s + 2 * c, p.peaks + pc.a0 + 2 * c);
       if (lane < span / 8) {
@@ -284,8 +298,8 @@ xic_kernel(const XicParams p) {
     stage(i + kDepth - 1);
     cp_async_wait<kDepth - 1>();  // piece i has landed for this lane
     __syncwarp();                 // ... and for every lane
-    const Piece pc = piece(i);
-    const int s = (i % kDepth) * kSlot + (pc.start - pc.a0);
+    const Piece<Index> pc = piece(i);
+    const int s = (i % kDepth) * kSlot + (int)(pc.start - pc.a0);
     const float mz_q = __shfl_sync(kFull, qmz, pc.j);
     const float qlo = __fmul_rn(mz_q, p.lo_factor);
     const float qhi = __fmul_rn(mz_q, p.hi_factor);
@@ -353,20 +367,30 @@ xic_kernel(const XicParams p) {
   }
 }
 
-template <bool WITH_MZ, bool SCAN>
+template <bool WITH_MZ, bool SCAN, typename Index>
 int launch(const XicParams& p, unsigned blocks, size_t smem, cudaStream_t s) {
   if (smem > 48 * 1024) {
-    cudaFuncSetAttribute(xic_kernel<WITH_MZ, SCAN>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    cudaFuncSetAttribute(xic_kernel<WITH_MZ, SCAN, Index>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   }
-  xic_kernel<WITH_MZ, SCAN><<<blocks, kWarps * 32, smem, s>>>(p);
+  xic_kernel<WITH_MZ, SCAN, Index><<<blocks, kWarps * 32, smem, s>>>(p);
   return (int)cudaGetLastError();
+}
+
+template <typename Index>
+int launch_variant(const XicParams& p, bool with_mz, bool scan, unsigned blocks, size_t smem, cudaStream_t s) {
+  if (with_mz) {
+    return scan ? launch<true, true, Index>(p, blocks, smem, s) : launch<true, false, Index>(p, blocks, smem, s);
+  }
+  return scan ? launch<false, true, Index>(p, blocks, smem, s) : launch<false, false, Index>(p, blocks, smem, s);
 }
 
 }  // namespace
 
+// index_bytes: the cell index's width, 4 (int32) or 8 (int64); any other
+// is refused with cudaErrorInvalidValue, before anything is launched
 extern "C" int xic_launch(
     const void* peaks, const void* cycle, const void* scanbin, long long n_peaks,
-    const void* cell_start, long long row_len,
+    const void* cell_start, int index_bytes, long long row_len,
     int n_slots, int n_bins, int n_cycles,
     const void* slot_idx, const void* query_mz, const void* cycle_start,
     const void* scan_lo, const void* scan_hi,
@@ -374,12 +398,13 @@ extern "C" int xic_launch(
     float lo_factor, float hi_factor, float bin_mz_min, float bin_width,
     int with_mz, int mz_as_delta,
     void* out_int, void* out_mz, void* stream) {
+  if (index_bytes != 4 && index_bytes != 8) return (int)cudaErrorInvalidValue;
   XicParams p;
   p.peaks = static_cast<const float2*>(peaks);
   p.cycle = static_cast<const unsigned short*>(cycle);
   p.scanbin = static_cast<const short*>(scanbin);
   p.n_peaks = n_peaks;
-  p.cell_start = static_cast<const int*>(cell_start);
+  p.cell_start = cell_start;
   p.row_len = row_len;
   p.n_slots = n_slots;
   p.n_bins = n_bins;
@@ -419,8 +444,6 @@ extern "C" int xic_launch(
   const unsigned blocks = (unsigned)((n_queries + per_block - 1) / per_block);
   const size_t smem = (size_t)kWarps * p.warp_smem;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (with_mz) {
-    return scan ? launch<true, true>(p, blocks, smem, s) : launch<true, false>(p, blocks, smem, s);
-  }
-  return scan ? launch<false, true>(p, blocks, smem, s) : launch<false, false>(p, blocks, smem, s);
+  if (index_bytes == 8) return launch_variant<long long>(p, with_mz, scan, blocks, smem, s);
+  return launch_variant<int>(p, with_mz, scan, blocks, smem, s);
 }

@@ -36,6 +36,9 @@ The JAX package's ``models/finetune.py``, fit for fit:
 - training runs on the manager's device; the training inputs, the
   validation split and the test split are uploaded once each, an epoch's
   batch indices once an epoch.
+  On the card the training steps run under PyTorch's deterministic
+  algorithms (``utils/device.deterministic``), so that two runs of a fit
+  read the same weights.
 
 ``models.pkl`` holds ``{"variables": flax trees of numpy arrays (the
 JAX package's layout, ``convert.property_models_to_jax``), "metrics":
@@ -60,7 +63,7 @@ from alphadia_torch.convert import property_models_from_jax, property_models_to_
 from alphadia_torch.library.speclib import str_col
 from alphadia_torch.models.property_models import FRAG_COLS, MAX_CHARGE, MAX_LEN, MODEL_OF, encode_sequences
 from alphadia_torch.reporting import PROGRESS
-from alphadia_torch.utils.device import resolve_device
+from alphadia_torch.utils.device import deterministic, resolve_device
 from alphadia_torch.utils.frame import n_rows
 from alphadia_torch.utils.jax_random import embed_normal, flax_rng, lecun_normal, prng_key
 
@@ -217,12 +220,13 @@ class _Trainer:
                 group["lr"] = self.max_lr * scale
             order = rng.permutation(len(train_idx))
             idx_mat = up(train_idx[order[: nb * bs]].astype(np.int64).reshape(nb, bs))
-            for b in range(nb):
-                idx = idx_mat[b]
-                loss = loss_fn(model(*(a.index_select(0, idx) for a in dev_in)), dev_t.index_select(0, idx))
-                opt.zero_grad(set_to_none=True)
-                loss.backward()
-                opt.step()
+            with deterministic(device):
+                for b in range(nb):
+                    idx = idx_mat[b]
+                    loss = loss_fn(model(*(a.index_select(0, idx) for a in dev_in)), dev_t.index_select(0, idx))
+                    opt.zero_grad(set_to_none=True)
+                    loss.backward()
+                    opt.step()
             self.last_fit = {"epochs": epoch + 1, "steps": (epoch + 1) * nb}
             vloss = eval_loss(vin, vt) if vin is not None else 0.0
             history.append(vloss)

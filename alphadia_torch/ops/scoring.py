@@ -105,7 +105,7 @@ def round_transport(features, frag_out):
 
 def score_candidates_batch(
     peak_store,  # PeakStore (DiaData.device_arrays)
-    cell_start,  # i32[n_slots, n_bins, n_cycles+1]
+    cell_start,  # i32 or i64[n_slots, n_bins, n_cycles+1]
     cycle_rt,  # f32[n_cycles]
     frag_mz,  # f32[B, KF] library (calibrated) fragment m/z; 0 = pad
     frag_valid,  # bool[B, KF]

@@ -39,7 +39,7 @@ from alphadia_torch.ops.xic_cuda import extract_xic_cuda
 
 def select_candidates_batch(
     peak_store,  # PeakStore (DiaData.device_arrays)
-    cell_start,  # i32[n_slots, n_bins, n_cycles+1]
+    cell_start,  # i32 or i64[n_slots, n_bins, n_cycles+1]
     frag_slot,  # i32[B, QF] cycle slot per fragment query (-1 pad)
     frag_mz,  # f32[B, QF]
     iso_slot,  # i32[B, QI]
@@ -126,7 +126,7 @@ def select_candidates_batch_4d(
     peak_mz,  # f32[N]
     peak_intensity,  # f32[N]
     peak_scanbin,  # i16[N]
-    cell_start,  # i32[n_slots, n_bins, n_cycles+1], fine or strided
+    cell_start,  # i32 or i64[n_slots, n_bins, n_cycles+1], fine or strided
     frag_slot,  # i32[B, QF]
     frag_mz,  # f32[B, QF]
     iso_slot,  # i32[B, QI]

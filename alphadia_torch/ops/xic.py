@@ -53,7 +53,9 @@ def _slab_reads(
     n_bins, bin_mz_min, bin_width, slab,
 ):
     """What the slab read of each query sees. ``cyc`` i64[B, 1, L] holds the
-    cycle boundaries to look up (already clamped to [0, n_cycles]).
+    cycle boundaries to look up (already clamped to [0, n_cycles]). The
+    offsets are widened to int64 right after their gather, so an int32 and
+    an int64 ``cell_start`` read the same peaks.
 
     Returns ``rel`` i64[B, Q, L], the boundaries' offsets from the slab start
     clamped to [0, slab]; the slab's peak indices i64[B, Q, slab]; their m/z
@@ -95,7 +97,7 @@ def _cell_sums(v, rel):
 def extract_xic(
     peak_mz: torch.Tensor,  # f32[N]
     peak_intensity: torch.Tensor,  # f32[N]
-    cell_start: torch.Tensor,  # i32[n_slots, n_bins, n_cycles+1]
+    cell_start: torch.Tensor,  # i32 or i64[n_slots, n_bins, n_cycles+1]
     slot_idx: torch.Tensor,  # i32[B, Q] (-1 = masked query)
     query_mz: torch.Tensor,  # f32[B, Q]
     tol_ppm: float,
@@ -141,7 +143,7 @@ def extract_xic_4d(
     peak_mz: torch.Tensor,  # f32[N]
     peak_intensity: torch.Tensor,  # f32[N]
     peak_scanbin: torch.Tensor,  # i16[N]
-    cell_start: torch.Tensor,  # i32[n_slots, n_bins, n_cycles+1]
+    cell_start: torch.Tensor,  # i32 or i64[n_slots, n_bins, n_cycles+1]
     slot_idx: torch.Tensor,  # i32[B, Q]
     query_mz: torch.Tensor,  # f32[B, Q]
     tol_ppm: float,
@@ -185,7 +187,7 @@ def extract_scan_profile(
     peak_mz: torch.Tensor,  # f32[N]
     peak_intensity: torch.Tensor,  # f32[N]
     peak_scanbin: torch.Tensor,  # i16[N]
-    cell_start: torch.Tensor,  # i32[n_slots, n_bins, n_cycles+1]
+    cell_start: torch.Tensor,  # i32 or i64[n_slots, n_bins, n_cycles+1]
     slot_idx: torch.Tensor,  # i32[B, Q]
     query_mz: torch.Tensor,  # f32[B, Q]
     tol_ppm: float,

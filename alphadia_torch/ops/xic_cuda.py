@@ -5,10 +5,12 @@ the ``PeakStore`` of ``DiaData.device_arrays``: m/z and intensity, and the
 cycle plane (u16, cycle mod 2**16) that the kernel reads for each peak's
 cell. Two additions: ``cycle_stride`` (a power of two) for the coarse cell
 view of a strided ``cell_start``, and the per-candidate scan window
-``scan_lo``/``scan_hi`` over the store's scan-bin plane. On CPU tensors it
-runs the plain version, which takes each cell's peaks from ``cell_start``
-and does not read the cycle plane; on CUDA tensors it launches the kernel
-or raises.
+``scan_lo``/``scan_hi`` over the store's scan-bin plane. ``cell_start`` is
+int32, or int64 for a store of 2**31 entries or more: the kernel has an
+instantiation for each, and any other type raises on every device (an
+int64 index is never narrowed). On CPU tensors it runs the plain version,
+which takes each cell's peaks from ``cell_start`` and does not read the
+cycle plane; on CUDA tensors it launches the kernel or raises.
 
 The kernel is built with nvcc at first use into ``build/alphadia_torch/``
 (route: a shared library with a plain C interface, loaded with ctypes).
@@ -89,7 +91,7 @@ def load(defines: dict | None = None):
     P, LL, I, F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
     fn.argtypes = [
         P, P, P, LL,  # peaks, cycle, scanbin, n_peaks
-        P, LL, I, I, I,  # cell_start, row_len, n_slots, n_bins, n_cycles
+        P, I, LL, I, I, I,  # cell_start, index_bytes, row_len, n_slots, n_bins, n_cycles
         P, P, P, P, P,  # slot_idx, query_mz, cycle_start, scan_lo, scan_hi
         I, I, I, I, I,  # B, Q, W, slab, stride_shift
         F, F, F, F,  # lo_factor, hi_factor, bin_mz_min, bin_width
@@ -121,7 +123,7 @@ def _check(t, name, dtype, ndim, device):
 
 def extract_xic_cuda(
     store,  # PeakStore (DiaData.device_arrays)
-    cell_start: torch.Tensor,  # i32[n_slots, n_bins, n_cycles+1]
+    cell_start: torch.Tensor,  # i32 or i64[n_slots, n_bins, n_cycles+1]
     slot_idx: torch.Tensor,  # i32[B, Q]
     query_mz: torch.Tensor,  # f32[B, Q]
     tol_ppm: float,
@@ -145,6 +147,9 @@ def extract_xic_cuda(
         raise ValueError(f"cycle_stride must be a power of two, got {cycle_stride}")
     if (scan_lo is None) != (scan_hi is None):
         raise ValueError("scan_lo and scan_hi go together")
+    index_type = getattr(cell_start, "dtype", type(cell_start).__name__)
+    if index_type not in (torch.int32, torch.int64):
+        raise TypeError(f"cell_start must be a torch.int32 or torch.int64 tensor, got {index_type}")
     kw = dict(
         n_cycles=n_cycles, n_bins=n_bins, bin_mz_min=bin_mz_min,
         bin_width=bin_width, slab=slab, window_len=window_len,
@@ -171,7 +176,7 @@ def extract_xic_cuda(
         or any(t.data_ptr() % 16 for t in store)
     ):
         raise ValueError("store must be 16-byte aligned planes of N rows ([N, 2], [N], [N]), N a multiple of 8")
-    _check(cell_start, "cell_start", torch.int32, 3, dev)
+    _check(cell_start, "cell_start", cell_start.dtype, 3, dev)
     if cell_start.shape[1] != n_bins or cell_start.shape[2] < n_cycles + 1:
         raise ValueError(
             f"cell_start shape {tuple(cell_start.shape)} does not match "
@@ -202,7 +207,7 @@ def extract_xic_cuda(
             peaks.data_ptr(), cycle.data_ptr(),
             scanbin.data_ptr() if scan_lo is not None else None,
             n_peaks,
-            cell_start.data_ptr(), cell_start.shape[2],
+            cell_start.data_ptr(), cell_start.element_size(), cell_start.shape[2],
             cell_start.shape[0], n_bins, n_cycles,
             slot_idx.data_ptr(), query_mz.data_ptr(), cycle_start.data_ptr(),
             scan_lo.data_ptr() if scan_lo is not None else None,
@@ -214,6 +219,6 @@ def extract_xic_cuda(
             out_int.data_ptr(), out_mz.data_ptr() if with_mz else None, stream,
         )
     if err != 0:
-        raise RuntimeError(f"xic kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"xic kernel launch failed ({cell_start.dtype} cell index): CUDA error {err}")
     launches += 1
     return (out_int, out_mz) if with_mz else out_int

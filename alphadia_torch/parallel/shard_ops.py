@@ -43,7 +43,7 @@ def run_on_devices(devices: list, fn) -> list:
 def extract_xic_cuda_sharded(
     devices: list,
     stores: list,  # one PeakStore per device (DiaData.device_arrays(stride, device))
-    cell_starts: list,  # one i32[n_slots, n_bins, n_cycles+1] per device
+    cell_starts: list,  # one i32 or i64[n_slots, n_bins, n_cycles+1] per device
     slot_idx: torch.Tensor,  # i32[B, Q], B divisible by len(devices)
     query_mz: torch.Tensor,  # f32[B, Q]
     tol_ppm: float,

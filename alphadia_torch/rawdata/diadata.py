@@ -59,7 +59,9 @@ class DiaData:
     # peak store sorted by (slot, coarse bin, cycle, mz)
     peak_mz: np.ndarray = None  # f32[n_peaks + pad]
     peak_intensity: np.ndarray = None  # f32[n_peaks + pad]
-    cell_start: np.ndarray = None  # i32[n_slots, n_bins, n_cycles + 1]
+    # i32[n_slots, n_bins, n_cycles + 1]; i64 past 2**31 stored entries
+    # (rawdata/peakstore.cell_index_dtype), so no offset wraps
+    cell_start: np.ndarray = None
     n_bins: int = 1
     bin_mz_min: float = 0.0
     coarse_bin_width: float = 1.0
@@ -181,6 +183,7 @@ class DiaData:
 
     @property
     def n_stored_peaks(self) -> int:
+        """Stored entries (peaks and ghosts): the index's last offset."""
         return int(self.cell_start[-1, -1, -1]) if self.cell_start is not None else 0
 
     @property
@@ -234,7 +237,7 @@ class DiaData:
 
     def peak_cycle(self) -> np.ndarray:
         """The cycle of every stored peak, i32[n_stored_peaks], read off the
-        cell index."""
+        cell index (int32 or int64 offsets; the counts are int64)."""
         counts = np.diff(
             np.concatenate([self.cell_start[:, :, :-1].reshape(-1), [self.n_stored_peaks]])
         )
@@ -248,6 +251,8 @@ class DiaData:
         ``stride > 1`` is a cycle-coarsened view of the same store: the peaks
         of ``stride`` adjacent cycles are contiguous per (slot, bin), so
         coarsening is only a strided ``cell_start``, over the same store.
+        Both views keep the index's type (int32, or int64 past 2**31 stored
+        entries).
         """
         Nc_p = self.n_cycles_dev
         crt = self._cycle_rt_padded()
@@ -269,9 +274,10 @@ class DiaData:
 
         Returns ``peak_store`` (a :class:`PeakStore`), the views
         ``peak_mz``, ``peak_intensity`` and ``peak_scanbin`` of its planes
-        (for the plain 4D extractions), ``cell_start`` i32, ``cycle_rt`` f32
-        and the static ``n_cycles``. The coarse view shares the fine view's
-        peak store on the device.
+        (for the plain 4D extractions), ``cell_start`` (i32, or i64 past 2**31
+        stored entries, never narrowed), ``cycle_rt`` f32 and the static
+        ``n_cycles``. The coarse view shares the fine view's peak store on the
+        device.
         """
         device = resolve_device(device)
         key = (str(device), stride)

@@ -11,9 +11,11 @@ byte for byte:
 - ``peak_mz`` f32, ``peak_intensity`` f32, ``peak_is_ghost`` bool and
   ``peak_scanbin`` i32 (0 for 3D data), each followed by ``PAD`` entries
   (m/z +inf, the rest 0);
-- ``cell_start`` i32[n_slots, n_bins, n_cycles + 1], the first stored peak
-  of each cell and, last, the end of each (slot, bin) row. Its offsets wrap
-  past 2**31 stored peaks, as the JAX package's do.
+- ``cell_start`` [n_slots, n_bins, n_cycles + 1], the first stored peak of
+  each cell and, last, the end of each (slot, bin) row: int32 while the
+  stored entries and their padding stay below ``INDEX32_LIMIT`` (2**31),
+  int64 past it (:func:`cell_index_dtype`). The JAX package's builders
+  always write int32, whose offsets wrap past 2**31 stored entries.
 
 The C++ builder is a counting sort on ``threads`` threads (the output does
 not depend on their count), built at first use (``utils/cxx``); without a
@@ -36,6 +38,7 @@ from alphadia_torch.utils.cxx import build_library
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "peakstore.cpp"
 CXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC", "-pthread", "-ffp-contract=off"]
 PAD = 1024
+INDEX32_LIMIT = 2**31  # stored entries + PAD below it: an int32 cell index
 MIN_PEAKS_PER_THREAD = 1 << 16  # the default thread count's grain
 
 _lib = None
@@ -47,7 +50,13 @@ class PeakStoreArrays(NamedTuple):
     peak_intensity: np.ndarray
     peak_is_ghost: np.ndarray
     peak_scanbin: np.ndarray
-    cell_start: np.ndarray
+    cell_start: np.ndarray  # int32, or int64 past INDEX32_LIMIT (cell_index_dtype)
+
+
+def cell_index_dtype(total: int) -> type:
+    """The cell index's type for ``total`` stored entries: int32 while
+    ``total + PAD`` stays below ``INDEX32_LIMIT``, else int64."""
+    return np.int32 if total + PAD < INDEX32_LIMIT else np.int64
 
 
 def build() -> Path:
@@ -65,7 +74,7 @@ def _library():
             grid = [P, LL, LL, LL, D, D, LL, D]  # spec_start, n_spectra, n_slots, n_cycles, lo, width, n_bins, ghost
             lib.peakstore_count.argtypes = [P, *grid, P, I]
             lib.peakstore_count.restype = LL
-            lib.peakstore_scatter.argtypes = [P, P, P, *grid, P, P, P, P, P, P, I]
+            lib.peakstore_scatter.argtypes = [P, P, P, *grid, P, P, P, P, P, P, I, I]
             lib.peakstore_scatter.restype = I
             _lib = lib
         return _lib
@@ -112,11 +121,11 @@ def build_peak_store(
         raise RuntimeError("the peak-store builder could not count the cells")
     out = PeakStoreArrays(
         np.empty(total + PAD, np.float32), np.empty(total + PAD, np.float32), np.empty(total + PAD, bool),
-        np.empty(total + PAD, np.int32), np.empty((n_slots, n_bins, n_cycles + 1), np.int32),
+        np.empty(total + PAD, np.int32), np.empty((n_slots, n_bins, n_cycles + 1), cell_index_dtype(total)),
     )
     rc = lib.peakstore_scatter(
         mz.ctypes.data, inten.ctypes.data, None if sb is None else sb.ctypes.data, *grid, cell_off.ctypes.data,
-        *(a.ctypes.data for a in out), int(threads),
+        *(a.ctypes.data for a in out), out.cell_start.itemsize, int(threads),
     )
     if rc != 0:
         raise RuntimeError("the peak-store builder could not scatter the peaks")
@@ -170,5 +179,5 @@ def build_peak_store_numpy(
         np.concatenate([with_ghosts(inten)[order], np.zeros(PAD, np.float32)]),
         np.concatenate([is_ghost[order], np.zeros(PAD, bool)]),
         np.concatenate([scan[order], np.zeros(PAD, np.int32)]),
-        np.concatenate([cs, ends], axis=2).astype(np.int32),
+        np.concatenate([cs, ends], axis=2).astype(cell_index_dtype(int(cell_off[-1]))),
     )

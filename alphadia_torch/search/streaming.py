@@ -70,8 +70,9 @@ def selection_half_window_s(spectra: SpectrumData | None, cfg: SelectionConfig) 
 
 def device_megabytes(dev: dict) -> float:
     """MB that one ``DiaData.device_arrays`` view holds on the device: the
-    peak store's planes, ``cell_start`` and ``cycle_rt`` (``peak_mz``,
-    ``peak_intensity`` and ``peak_scanbin`` are views of the store)."""
+    peak store's planes, ``cell_start`` at its own width (4 or 8 B an
+    offset) and ``cycle_rt`` (``peak_mz``, ``peak_intensity`` and
+    ``peak_scanbin`` are views of the store)."""
     tensors = [*dev["peak_store"], dev["cell_start"], dev["cycle_rt"]]
     return sum(t.numel() * t.element_size() for t in tensors) / 1e6
 

@@ -7,9 +7,16 @@ falls back silently, so a measurement can never come from the wrong device.
 TF32 is switched off for matrix products and convolutions: the band-matrix
 smoothing of selection is a float32 product, and TF32's 10-bit mantissa
 would move the selection scores.
+
+``deterministic(device)`` holds PyTorch's deterministic algorithms on for a
+span on the card: a training loop in it reads the same weights in every
+run (the default backward passes on the card sum in an order that varies
+from run to run).
 """
 
 from __future__ import annotations
+
+from contextlib import contextmanager
 
 import torch
 
@@ -29,6 +36,22 @@ def resolve_device(device=None) -> torch.device:
             "PyTorch path on the host"
         )
     return dev
+
+
+@contextmanager
+def deterministic(device):
+    """PyTorch's deterministic algorithms for the span when ``device`` is a
+    CUDA device (the CPU's kernels already are); the setting before is put
+    back after."""
+    if torch.device(device).type != "cuda":
+        yield
+        return
+    before = torch.are_deterministic_algorithms_enabled(), torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(before[0], warn_only=before[1])
 
 
 def effective_batch(configured: int, n: int, floor: int = 256) -> int:

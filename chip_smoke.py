@@ -93,7 +93,7 @@ Phases, in order; any failure exits non-zero:
    with the host's C++ compiler and held to the committed fixture (the
    JAX writer's ``.d`` read with the sha256 of the JAX reader's arrays, the
    frame payloads at zstd levels -5, 1 and 19 with their sha256), its rate
-   on 1 and on every host thread; (b) the full 4D world from sequences
+   on 1 and on every host thread; (b) [8]'s full 4D world from sequences
    written by the port's TDF writer and read back equal to the input
    quantized to tof index and scan (the reader's walls split into SQLite,
    decode and window split); (c) ``alphadia-torch -f run_4d.d -l lib.tsv``
@@ -200,10 +200,22 @@ Phases, in order; any failure exits non-zero:
    and 20 of the 80 epochs (the script's time): each fit's wall, epochs,
    steps and ms a step, every metric and gate reading against JAX's at the
    same cut;
-18. the ``{"kernels": [...]}`` line (``xic``: the launches of phases
+18. a peak store past 2**31 entries, the kernel's int64 cell index: (a)
+   the stores of [5]'s launches placed on the card behind 2**31 filler
+   rows (25.8 GB, made there with ``torch.full``) and each launch of [5]
+   again with its index widened to int64 and moved past 2**31: equal at
+   atol 0 to the same launch with the int32 index at offset 0, held to the
+   plain version at the offset at [3]'s tolerances; per pass both
+   instantiations' device ms (in turns) and bounds, beside [5]'s; (b) both
+   main paths of [4] from a ``DiaData`` whose index is widened to int64:
+   [4]'s candidates, every PSM feature within ``FEATURE_REL_TOL``; the
+   device memory freed;
+19. the ``{"kernels": [...]}`` line (``xic``: the launches of phases
    [4]-[14], [16a] and [17b]; ``xic_sharded``: those of [15b]'s sharded
-   drivers; the processes of [15c], [15d] and [16c] count in neither), then
-   the card's name and power limit, then the ``{"ok": true, ...}`` line last.
+   drivers; ``xic_index64``: the int64 instantiation's launches on [18b]'s
+   main paths, timed on [18a]'s; the processes of [15c], [15d] and [16c]
+   count in none), then the card's name and power limit, then the
+   ``{"ok": true, ...}`` line last.
 """
 
 from __future__ import annotations
@@ -695,7 +707,8 @@ def store_layout(store):
 def work(args, kw):
     """(bytes, operations) that one launch must move and do on these
     inputs. Bytes: each input read once (the peaks that some query's slab
-    covers; the cell offsets that some query reads; the query arrays) and
+    covers; the cell offsets that some query reads, 4 or 8 B each as the
+    index is int32 or int64; the query arrays) and
     each output plane written once. Queries of one slot and m/z bin share
     their peaks, which are counted once. A peak costs its m/z and intensity
     (8 B), and its scan bin (2 B more in the store's i16 plane) under a
@@ -704,7 +717,7 @@ def work(args, kw):
     for each (query, slab peak) pair."""
     import torch
 
-    store, _, slot, _, _, _ = args
+    store, cell_start, slot, _, _, _ = args
     B, Q = slot.shape
     n_rows, peak_bytes, scan_bytes = store_layout(store)
     lo, hi, r0, slab = slabs(args, kw)
@@ -716,7 +729,10 @@ def work(args, kw):
     unique_peaks = int((torch.cumsum(edge, 0)[:-1] > 0).sum())
     offsets = int(torch.unique(torch.cat([lo[slot >= 0], hi[slot >= 0]])).numel())
     planes = 2 if kw.get("with_mz") else 1
-    nbytes = unique_peaks * peak_bytes + offsets * 4 + B * Q * 8 + B * 4 + planes * B * Q * kw["window_len"] * 4
+    nbytes = (
+        unique_peaks * peak_bytes + offsets * cell_start.element_size() + B * Q * 8 + B * 4
+        + planes * B * Q * kw["window_len"] * 4
+    )
     if kw.get("scan_lo") is not None:
         nbytes += unique_peaks * scan_bytes + 2 * B * 4
     return nbytes, 8 * int(slab.sum())
@@ -2562,18 +2578,17 @@ def phase11a(root, name, card):
         )
 
 
-def phase11b(root, name, card, tmp):
-    """The full 4D world from sequences through the port's TDF writer and
-    reader: the read equals the input quantized to tof index and scan."""
+def phase11b(root, name, card, tmp, spectra):
+    """The full 4D world from sequences (made in phase [8]) through the
+    port's TDF writer and reader: the read equals the input quantized to
+    tof index and scan."""
     from alphadia_torch.rawdata import bruker_tdf
     from alphadia_torch.testing.tdf_writer import spectrum_data_to_tdf
 
     sys.path.insert(0, str(root / "tests"))
     from torch_workflow_worlds import same_spectra, tdf_quantized
 
-    t0 = time.perf_counter()
-    spectra, _, _ = make_spectra(N_PEPTIDES_4D, N_CYCLES, from_sequence=True, with_mobility=True)
-    log(f"[11b] 4D full world from sequences: {len(spectra.mz)} peaks, made in {time.perf_counter() - t0:.2f} s")
+    log(f"[11b] 4D full world from sequences (made in phase [8]): {len(spectra.mz)} peaks")
     d_path = tmp / "run_4d_full.d"
     t0 = time.perf_counter()
     spectrum_data_to_tdf(spectra, d_path)
@@ -3650,8 +3665,11 @@ def phase13b(root, name, card, launches, secs, tmp):
 # 0.0148 (charge accuracy) and 0.0360 (MS2 spectral angle), where on one
 # transfer library the fits equal JAX's at 1e-3 (tests/test_torch_finetune.py,
 # test_torch_transfer_library.py); and its later steps' identified and false
-# shares by up to 0.0098 and 0.0108 (the card's runs also vary between calls:
-# run_1 of the MBR step read 0.8366 and 0.8282 at state 0 in calls 1 and 3).
+# shares by up to 0.0098 and 0.0108. The card's fine-tune once varied
+# between calls, and the later steps magnified it (run_1 of the MBR step read
+# 0.8366 and 0.8282 at state 0 in two calls; library_false_run_1 once rose
+# above its gate): its training steps now run under PyTorch's deterministic
+# algorithms (utils/device.deterministic), and two calls read the same values.
 # Gates: the transfer library within 5% of JAX's band ([13b]'s); each model
 # metric within JAX's band widened by MS_METRIC_MARGIN (that distance and
 # about a third more, at least 0.005); the IDs as [12c] gates them with
@@ -4860,6 +4878,155 @@ def phase17c(name, card):
         raise AssertionError(f"[17c] readings more than their margin below JAX's: {bad}")
 
 
+# ---------------------------------------------------------------------------
+# 18. a store past 2**31 entries: the int64 cell index
+# ---------------------------------------------------------------------------
+# rows of filler placed on the card before the recorded launches' stores in
+# [18a], so that every cell offset of theirs lies past 2**31
+INDEX64_FILLER = 2**31
+
+
+def phase18a(calls, per_stage, name, card) -> dict:
+    """(a) Every launch of phase [5] again with its store behind
+    ``INDEX64_FILLER`` rows on the card and its cell index widened to int64
+    and moved past 2**31: equal at atol 0 to the same launch with the int32
+    index at offset 0, and held to the plain version at the same offset.
+    Per pass the device ms of both instantiations (each pass timed in turns
+    in this phase, beside phase [5]'s int32 ms), the plain version's at the
+    offset and both bounds (the int64 one reads 8 B a window edge). Frees
+    the store before it returns the numbers of the ``xic_index64`` entry."""
+    import torch
+
+    from alphadia_torch.testing.offset_store import behind_filler
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    stores = {}
+    for _, args, _ in calls:
+        stores.setdefault(args[0].packed.data_ptr(), args[0])
+    big, first = behind_filler(list(stores.values()), INDEX64_FILLER)
+    torch.cuda.synchronize()
+    gb = sum(t.numel() * t.element_size() for t in big) / 1e9
+    log(
+        f"[18a] {len(stores)} stores of the recorded launches behind {INDEX64_FILLER} filler rows: "
+        f"{big.packed.shape[0]} rows, {gb:.2f} GB on the card (12 B a row), made on the card in "
+        f"{time.perf_counter() - t0:.2f} s; their first rows {min(first)}-{max(first)} ({name}, {card})"
+    )
+    out = launches_past_2_31(calls, per_stage, big, dict(zip(stores, first)), name, card)
+    del big
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"[18a] store freed: {torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated after the phase, which took "
+        f"{time.perf_counter() - t0:.2f} s")
+    return out
+
+
+def launches_past_2_31(calls, per_stage, big, at, name, card) -> dict:
+    """[18a]'s checks and timings of ``calls`` on ``big``, each call's store
+    at its first row ``at[data_ptr]``; holds no reference to ``big`` once it
+    returns."""
+    import functools
+
+    import torch
+
+    from alphadia_torch.ops.xic import extract_xic_packed
+    from alphadia_torch.ops.xic_cuda import extract_xic_cuda
+
+    passes, worst = {}, [0.0, 0.0]
+    for i, (stage, args, kw) in enumerate(calls):
+        store, cs, slot, qmz, tol, c0 = args
+        args64 = (big, cs.long() + at[store.packed.data_ptr()], slot, qmz, tol, c0)
+        want = extract_xic_cuda(*args, **kw)
+        got = extract_xic_cuda(*args64, **kw)
+        want, got = (x if isinstance(x, tuple) else (x,) for x in (want, got))
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"[18a] {stage} launch {i}: the int64 index past 2**31 differs from the int32 index")
+        for plane, (mabs, mrel, bad, _) in zip(("intensity", "mz"), plane_errors(got, extract_xic_packed(*args64, **kw), kw)):
+            if bad:
+                raise AssertionError(f"[18a] {stage} launch {i} {plane}: the int64 index disagrees with the plain version")
+            worst = [max(worst[0], mabs), max(worst[1], mrel)]
+        acc = passes.setdefault(stage, {"int32": [], "int64": [], "plain": [], "bytes32": 0, "bytes64": 0, "ops": 0})
+        acc["int32"].append(functools.partial(extract_xic_cuda, *args, **kw))
+        acc["int64"].append(functools.partial(extract_xic_cuda, *args64, **kw))
+        acc["plain"].append(functools.partial(extract_xic_packed, *args64, **kw))
+        b32, ops = work(args, kw)
+        b64, _ = work((store, cs.long(), slot, qmz, tol, c0), kw)  # the same bytes as at the offset
+        acc["bytes32"] += b32
+        acc["bytes64"] += b64
+        acc["ops"] += ops
+    log(f"[18a] {len(calls)} launches at the offset, each equal to its int32 twin at atol 0 and within [3]'s tolerances "
+        f"of the plain version: max_abs={worst[0]:.3g} max_rel={worst[1]:.3g} ({name}, {card})")
+
+    def bound(nbytes, ops):
+        return max(nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S) * 1e3
+
+    tot = dict.fromkeys(("int32", "int64", "plain", "bytes32", "bytes64", "ops", "phase5"), 0.0)
+    for stage, acc in passes.items():
+        ms32, ms64 = launches_ms(acc["int32"], reps=3), launches_ms(acc["int64"], reps=3)
+        ms64_again, ms32_again = launches_ms(acc["int64"], reps=3), launches_ms(acc["int32"], reps=3)
+        ms32, ms64 = (ms32 + ms32_again) / 2, (ms64 + ms64_again) / 2
+        plain_ms = launches_ms(acc["plain"], reps=1)
+        b32, b64 = bound(acc["bytes32"], acc["ops"]), bound(acc["bytes64"], acc["ops"])
+        log(
+            f"[18a] {stage:17s} {len(acc['int32'])} launches: int32 at offset 0 {ms32:.4f} ms (bound {b32:.4f}; phase "
+            f"[5] {per_stage[stage]['ms']:.4f}), int64 past 2**31 {ms64:.4f} ms (bound {b64:.4f}), {ms64 / ms32:.3f} "
+            f"times the int32 time; plain version at the offset {plain_ms:.4f} ms ({name}, {card})"
+        )
+        for k, v in (("int32", ms32), ("int64", ms64), ("plain", plain_ms), ("bytes32", acc["bytes32"]),
+                     ("bytes64", acc["bytes64"]), ("ops", acc["ops"]), ("phase5", per_stage[stage]["ms"])):
+            tot[k] += v
+    by_bytes = tot["bytes64"] / HBM_BYTES_PER_S >= tot["ops"] / FP32_OPS_PER_S
+    out = {
+        "ms": tot["int64"], "plain_ms": tot["plain"], "bound_ms": bound(tot["bytes64"], tot["ops"]),
+        "bound_by": "bytes" if by_bytes else "operations", "max_abs_err": worst[0],
+    }
+    log(
+        f"[18a] these {len(calls)}: int32 at offset 0 {tot['int32']:.4f} ms (bound {bound(tot['bytes32'], tot['ops']):.4f}; "
+        f"phase [5] {tot['phase5']:.4f}), int64 past 2**31 {tot['int64']:.4f} ms (bound {out['bound_ms']:.4f}, "
+        f"{out['bound_by']}; {tot['bytes64'] - tot['bytes32']:.0f} B more than int32's), {tot['int64'] / tot['int32']:.3f} "
+        f"times; plain at the offset {tot['plain']:.4f} ms ({name}, {card})"
+    )
+    return out
+
+
+def phase18b(worlds, main_out, name, card) -> dict:
+    """(b) Both main paths of phase [4] at full width from a ``DiaData``
+    whose cell index is widened to int64 (the fine and the coarse view): the
+    candidates of both selections equal to [4]'s int32 run, every PSM
+    feature within ``FEATURE_REL_TOL`` of it; the kernel's launches per pass
+    (the ``xic_index64`` entry's). Frees the views before it returns."""
+    import dataclasses
+
+    import torch
+
+    launches = {}
+    for label, tag, kernel_passes in (("3D", "", ("selection", "scoring", "selection_wide")), ("4D", "_4d", ("scoring",))):
+        dia, prec, frag = worlds[tag]
+        wide = dataclasses.replace(dia, cell_start=dia.cell_start.astype(np.int64), _device={})
+        out, secs, n = main_path((wide, prec, frag), tag)
+        views = [wide.device_arrays(stride, DEVICE)["cell_start"].dtype for stride in (1, 2)]
+        ref = main_out[tag]
+        same = {p: candidate_keys(out[p + tag]) == candidate_keys(ref[p + tag]) for p in ("selection", "selection_wide")}
+        ka, kb, dev, equal, _, _ = paired_features(out["scoring" + tag][0], ref["scoring" + tag][0])
+        log(
+            f"[18b] {label} from the int64 index (views {views}): wall s " + ", ".join(f"{k} {v:.4f}" for k, v in secs.items())
+            + f"; launches {json.dumps(n)}; candidates equal to [4]'s int32 run {same}; PSM keys {len(ka)} / {len(kb)} "
+            f"identical {ka == kb}, feature values within {FEATURE_REL_TOL} {float(np.mean(dev <= FEATURE_REL_TOL)):.6f}, "
+            f"bit-equal {float(np.mean(equal)):.6f} ({name}, {card})"
+        )
+        if views != [torch.int64, torch.int64]:
+            raise AssertionError(f"[18b] {label}: a view of the int64 index is not int64")
+        if not all(same.values()) or ka != kb or not (dev <= FEATURE_REL_TOL).all():
+            raise AssertionError(f"[18b] {label}: the int64 index does not give the int32 index's candidates and PSMs")
+        if min(n[p + tag] for p in kernel_passes) <= 0:
+            raise AssertionError(f"[18b] {label}: a pass that runs the kernel launched it no time: {n}")
+        launches.update({k + "_index64": v for k, v in n.items()})
+        wide.free_device()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["--cli-process"]:  # one process of phase [15c] / [15d]
@@ -4928,7 +5095,7 @@ def main(argv=None) -> int:
     check_agreement("4D", with_mobility=True)
 
     # ---- 4. the main paths --------------------------------------------------
-    secs, launches = {}, {}
+    secs, launches, main_out = {}, {}, {}
     for label, tag, kernel_passes in (("3D", "", ("selection", "scoring", "selection_wide")), ("4D", "_4d", ("scoring",))):
         torch.cuda.reset_peak_memory_stats()
         out, s_, l_ = main_path(worlds[tag], tag)
@@ -4942,7 +5109,7 @@ def main(argv=None) -> int:
             f"max_memory_allocated {peak_mem / 2**30:.3f} GiB ({name}, {card})"
         )
         path_checks(label, tag, worlds[tag], out, l_, kernel_passes)
-        del out
+        main_out[tag] = out  # phase [18b]'s reference
     timed_passes("3D", worlds[""], "", REPEATS, name, card)
     timed_passes("4D", worlds["_4d"], "_4d", REPEATS_4D, name, card)
     if opt.profile:
@@ -5028,7 +5195,7 @@ def main(argv=None) -> int:
         spec8, _, _ = make_spectra(N_PEPTIDES_4D, N_CYCLES, from_sequence=True, with_mobility=True)
         log(f"[8] 4D full world from sequences: {len(spec8.mz)} peaks, made in {time.perf_counter() - t0:.2f} s")
         mzml_round_trip("4D full world", spec8, tmp / "run_4d_full.mzML")
-        del spec8
+        spectra["_4d_full"] = spec8  # phase [11b]'s input
         for label, tag, n_pep, n_win, batch, kw in (
             ("3D", "", N_PEPTIDES, 12, None, {}),
             ("4D", "_4d", N_PEPTIDES_4D // 4, 3, SS_BATCH_4D, {"with_mobility": True}),
@@ -5059,7 +5226,7 @@ def main(argv=None) -> int:
 
         # ---- 11. Bruker .d input ----------------------------------------------
         phase11a(root, name, card)
-        phase11b(root, name, card, tmp)
+        phase11b(root, name, card, tmp, spectra.pop("_4d_full"))
         w = phase11c(root, name, card, launches, secs, tmp)
         max_abs_err = max(max_abs_err, w[0])
         log(f"[11c] kernel launches per run: {json.dumps(launches)} ({name}, {card})")
@@ -5117,7 +5284,14 @@ def main(argv=None) -> int:
         log(f"[17] phase [17] took {time.perf_counter() - t17:.2f} s; kernel launches per run "
             f"({sum(launches.values())} in all, the xic entry's): {json.dumps(launches)} ({name}, {card})")
 
-    # ---- 18. summary lines --------------------------------------------------
+    # ---- 18. a store past 2**31 entries: the int64 cell index -----------------
+    t18 = time.perf_counter()
+    wide = phase18a(calls, per_stage, name, card)
+    launches64 = phase18b(worlds, main_out, name, card)
+    log(f"[18] phase [18] took {time.perf_counter() - t18:.2f} s; kernel launches of the int64 instantiation on the "
+        f"main paths ({sum(launches64.values())} in all, the xic_index64 entry's): {json.dumps(launches64)} ({name}, {card})")
+
+    # ---- 19. summary lines --------------------------------------------------
     kernels = {
         "kernels": [
             {
@@ -5145,6 +5319,19 @@ def main(argv=None) -> int:
                 "plain_ms": route["plain_ms"],
                 "bound_ms": route["bound_ms"],
                 "bound_by": route["bound_by"],
+                "library_ms": None,
+            },
+            {
+                "name": "xic_index64",
+                "route": "cuda",
+                "source": "alphadia_torch/csrc/xic.cu",
+                "replaces": replaced_kernel(root),
+                "launches": sum(launches64.values()),
+                "max_abs_err": wide["max_abs_err"],
+                "ms": wide["ms"],
+                "plain_ms": wide["plain_ms"],
+                "bound_ms": wide["bound_ms"],
+                "bound_by": wide["bound_by"],
                 "library_ms": None,
             },
         ]

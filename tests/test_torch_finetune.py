@@ -331,3 +331,63 @@ def test_build_transfer_model_matches_jax(tmp_path, data):
     for k in stats["jax"]:
         np.testing.assert_allclose(stats["port"][k], stats["jax"][k], rtol=1e-4, err_msg=k)
     assert stats["port_models"] == stats["jax_models"] == ["ccs", "charge", "ms2", "rt"]
+
+
+@pytest.mark.parametrize("before", [(False, False), (True, True)])
+def test_deterministic_span_holds_on_the_card_only(before):
+    """``utils/device.deterministic``: on a CUDA device PyTorch's
+    deterministic algorithms are on, without warn-only, for the span and the
+    setting before is back after it, an exception included; on the CPU
+    nothing changes. No card is needed: the switch is PyTorch's."""
+    from alphadia_torch.utils.device import deterministic
+
+    def state():
+        return torch.are_deterministic_algorithms_enabled(), torch.is_deterministic_algorithms_warn_only_enabled()
+
+    saved = state()
+    torch.use_deterministic_algorithms(before[0], warn_only=before[1])
+    try:
+        with deterministic("cpu"):
+            assert state() == before
+        with deterministic(torch.device("cuda")):
+            assert state() == (True, False)
+        assert state() == before
+        with pytest.raises(RuntimeError, match="inside"):
+            with deterministic("cuda:0"):
+                raise RuntimeError("inside")
+        assert state() == before
+    finally:
+        torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
+
+
+def test_training_steps_run_in_the_deterministic_span(data, monkeypatch):
+    """Every training step of ``_Trainer.fit`` (each loss that is backed
+    up through) runs inside ``deterministic`` of the manager's device; the
+    validation and test losses outside it."""
+    import contextlib
+
+    psm, _ = data
+    spans, inside = [], []
+    active = [False]
+
+    @contextlib.contextmanager
+    def spy(device):
+        spans.append(torch.device(device))
+        active[0] = True
+        try:
+            yield
+        finally:
+            active[0] = False
+
+    def l1_loss(pred, target):
+        inside.append(active[0] and torch.is_grad_enabled())
+        return (pred - target).abs().mean()
+
+    monkeypatch.setattr(port_ft, "deterministic", spy)
+    monkeypatch.setattr(port_ft, "l1_loss", l1_loss)
+    mgr = port_ft.FinetuneManager(CONFIG, random_state=3, device="cpu")
+    mgr.finetune_rt(frame_from_pandas(psm))
+    fit = mgr.trainer.last_fit
+    assert spans == [torch.device("cpu")] * fit["epochs"]
+    assert sum(inside) == fit["steps"] > 0
+    assert len(inside) > fit["steps"]  # the held-out losses, outside the span

@@ -12,7 +12,10 @@ optimization -> extraction), ``SearchStep`` (mzML and TSV library in,
 ``psm.parquet`` out; and from the committed Bruker ``.d`` and alphaRaw
 ``.hdf``), the CLI on two runs (``alphadia-torch``, the
 cross-run tables out) and the kernel debug plots on the card, each held to
-the same run on the CPU.
+the same run on the CPU. The int64 cell index (a store of 2**31 entries
+or more): the kernel's int64 instantiation on the launches above gives the
+int32 one's bits, with the store where it was, moved behind filler rows,
+and behind 2**31 of them (25.8 GB on the card).
 
 Marked ``gpu``: each test skips where no CUDA card is present, and the
 decision is taken inside the test. On the card the file needs neither JAX
@@ -39,6 +42,7 @@ from alphadia_torch.search.common import kernel_available
 from alphadia_torch.search.pipelined import PipelinedExtraction
 from alphadia_torch.search.scoring import FEATURE_COLUMNS, CandidateScoring, ScoringConfig
 from alphadia_torch.search.selection import CandidateSelection, SelectionConfig
+from alphadia_torch.testing.offset_store import behind_filler
 from alphadia_torch.testing.synthetic import SyntheticConfig, add_synthetic_decoys, make_synthetic_dia
 from alphadia_torch.utils.device import batch_schedule
 from torch_xic_edges import EDGE_CASES, W as EDGE_W, edge_inputs, edge_world_config
@@ -90,24 +94,7 @@ CASES = {
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_kernel_matches_plain(card, case):
-    B, Q, W, slab, with_mz, mz_as_delta, stride, scan = CASES[case]
-    dia = _world(with_mobility=scan)
-    dev = dia.device_arrays(stride, card)
-    slot, qmz, c0 = _queries(dia, dev, B, Q, W, stride, sorted(CASES).index(case))
-
-    def t(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(card)
-
-    kw = dict(
-        n_cycles=dev["n_cycles"], n_bins=dia.n_bins, bin_mz_min=dia.bin_mz_min,
-        bin_width=dia.coarse_bin_width, slab=slab, window_len=W, with_mz=with_mz,
-        mz_as_delta=mz_as_delta, cycle_stride=stride,
-    )
-    if scan:
-        rng = np.random.default_rng(1)
-        lo = rng.integers(0, 6, B).astype(np.int32)
-        kw.update(scan_lo=t(lo), scan_hi=t(lo + rng.integers(1, 4, B).astype(np.int32)))
-    _, ref = _kernel_vs_plain((dev["peak_store"], dev["cell_start"], t(slot), t(qmz), 15.0, t(c0)), kw)
+    _, ref = _kernel_vs_plain(*_case_launch(card, case))
     assert float(ref[0].sum()) > 0
 
 
@@ -240,6 +227,100 @@ def test_kernel_cells_past_2_16_cycles(card, stride):
     )
     _, ref = _kernel_vs_plain(args, kw)
     assert (ref[0][1:3].sum(dim=-1) > 0).all()  # the windows at 65,536 hold peaks
+
+
+def _case_launch(card, case, dia=None):
+    """(args, kw) of one of CASES on the card, from ``dia`` or a world of
+    its own."""
+    B, Q, W, slab, with_mz, mz_as_delta, stride, scan = CASES[case]
+    dia = dia or _world(with_mobility=scan)
+    dev = dia.device_arrays(stride, card)
+    slot, qmz, c0 = _queries(dia, dev, B, Q, W, stride, sorted(CASES).index(case))
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(card)
+
+    kw = dict(
+        n_cycles=dev["n_cycles"], n_bins=dia.n_bins, bin_mz_min=dia.bin_mz_min,
+        bin_width=dia.coarse_bin_width, slab=slab, window_len=W, with_mz=with_mz,
+        mz_as_delta=mz_as_delta, cycle_stride=stride,
+    )
+    if scan:
+        rng = np.random.default_rng(1)
+        lo = rng.integers(0, 6, B).astype(np.int32)
+        kw.update(scan_lo=t(lo), scan_hi=t(lo + rng.integers(1, 4, B).astype(np.int32)))
+    return (dev["peak_store"], dev["cell_start"], t(slot), t(qmz), 15.0, t(c0)), kw
+
+
+def _planes(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_kernel_int64_index_matches_int32(card, case):
+    """The int64 instantiation: the index widened to int64, then the store
+    moved behind 1,024 filler rows with the index: the int32 launch's bits,
+    and the plain version's values."""
+    args, kw = _case_launch(card, case)
+    store, cs, *rest = args
+    want = _planes(xic_cuda.extract_xic_cuda(*args, **kw))
+    moved, (first,) = behind_filler([store], 1024)
+    for wide in ((store, cs.long()), (moved, cs.long() + first)):
+        got, _ = _kernel_vs_plain((*wide, *rest), kw)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert float(want[0].sum()) > 0
+
+
+def test_kernel_int64_index_past_2_31(card):
+    """Every variant of CASES with its store behind 2**31 filler rows on
+    the card and its index past 2**31: the int32 launch's bits at offset 0,
+    and the plain version's values at the offset. The 25.8 GB are freed."""
+    dia = _world(with_mobility=True)
+    launches = {case: _case_launch(card, case, dia) for case in sorted(CASES)}
+    fine = dia.device_arrays(1, card)
+    assert all(args[0] is fine["peak_store"] for args, _ in launches.values())  # the coarse view's store too
+    torch.cuda.empty_cache()
+    try:
+        _launches_past_2_31(launches, fine)
+    finally:
+        torch.cuda.empty_cache()
+    assert torch.cuda.memory_allocated() < 2**30
+
+
+def _launches_past_2_31(launches, fine):
+    store, _ = behind_filler([fine["peak_store"]], 2**31)
+    for case, (args, kw) in launches.items():
+        _, cs_view, *rest = args
+        at = (store, cs_view.long() + 2**31, *rest)
+        assert int(at[1].min()) >= 2**31
+        got, ref = _kernel_vs_plain(at, kw)
+        want = _planes(xic_cuda.extract_xic_cuda(*args, **kw))
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), case
+        assert float(ref[0].sum()) > 0, case
+
+
+def test_launch_refuses_other_index_widths(card):
+    """The library launches only the widths it was built for (4 and 8 B)
+    and refuses any other before it launches; the wrapper never narrows."""
+    args, kw = _case_launch(card, "a_intensity")
+    store, cs, slot, qmz, _, c0 = args
+    out = torch.full((1, 1, 16), -1.0, device=card)
+    lib = xic_cuda._library()
+    for index_bytes in (2, 0, 16):
+        err = lib.xic_launch(
+            store.packed.data_ptr(), store.cycle.data_ptr(), None, store.packed.shape[0],
+            cs.data_ptr(), index_bytes, cs.shape[2], cs.shape[0], kw["n_bins"], kw["n_cycles"],
+            slot.data_ptr(), qmz.data_ptr(), c0.data_ptr(), None, None,
+            1, 1, 16, 256, 0, 1.0, 1.0, float(kw["bin_mz_min"]), float(kw["bin_width"]), 0, 0,
+            out.data_ptr(), None, torch.cuda.current_stream().cuda_stream,
+        )
+        assert err != 0, index_bytes
+    torch.cuda.synchronize()
+    assert float(out.min()) == -1.0 == float(out.max())
+    before = xic_cuda.launches
+    with pytest.raises(TypeError, match="int32 or torch.int64"):
+        xic_cuda.extract_xic_cuda(store, cs.short(), slot, qmz, 15.0, c0, **kw)
+    assert xic_cuda.launches == before
 
 
 def test_wrapper_raises_on_bad_cuda_inputs(card):
@@ -743,3 +824,29 @@ def test_finetune_on_card_matches_the_cpu(name):
         if not isinstance(v, list):
             np.testing.assert_allclose(mc[k], v, rtol=1e-3, err_msg=k)
     np.testing.assert_allclose(pc, ph, atol=1e-3)
+
+
+@pytest.mark.parametrize("name", ["rt", "charge", "ms2", "ccs"])
+def test_finetune_on_card_reads_the_same_weights_twice(name):
+    """Each ``finetune_*`` twice on the card, the same config and random
+    state, 4 epochs of batches of 512 rows (17,920 residues a batch): the
+    same weights, losses and metrics, bit for bit. The training steps run
+    under PyTorch's deterministic algorithms (``utils/device.deterministic``);
+    ``tests/torch_finetune_repro.py`` reads how far two fits part without
+    them. Needs the card only, not nvcc."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from alphadia_torch.models.finetune import FinetuneManager
+
+    psm, frag = _finetune_inputs(n=1200)
+    runs = []
+    for _ in range(2):
+        mgr = FinetuneManager({"epochs": 4, "batch_size": 512}, random_state=3, device="cuda")
+        metrics = getattr(mgr, f"finetune_{name}")(*((psm, frag) if name == "ms2" else (psm,)))
+        runs.append((metrics, {k: v.cpu() for k, v in mgr.models[name].state_dict().items()}))
+    (m0, w0), (m1, w1) = runs
+    assert mgr.trainer.last_fit["epochs"] == 4
+    assert w0.keys() == w1.keys() and all(torch.equal(w0[k], w1[k]) for k in w0)
+    assert m0.keys() == m1.keys()
+    for k in m0:
+        np.testing.assert_array_equal(np.asarray(m0[k], dtype=float), np.asarray(m1[k], dtype=float), err_msg=k)
