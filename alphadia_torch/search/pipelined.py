@@ -22,7 +22,9 @@ slab keeps do not depend on W either: ``ops/scoring``).
 
 With several devices (either driver's ``_mesh()``) the two drivers run
 one after the other, each splitting its batches across the devices, as the
-JAX driver falls back under a device mesh.
+JAX driver falls back under a device mesh. Either way the spans under a
+profiler are the two drivers' own (``utils/profiling``), and the geometry's
+concatenations here are ``scoring.geometry`` spans.
 """
 
 from __future__ import annotations
@@ -49,12 +51,14 @@ from alphadia_torch.search.selection import (
     empty_candidates,
 )
 from alphadia_torch.utils.device import batch_schedule
+from alphadia_torch.utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
 
 def _geo_concat(parts: list[dict]) -> dict:
-    return {k: np.concatenate([p[k] for p in parts]) for k in GEO_KEYS}
+    with span("scoring.geometry"):
+        return {k: np.concatenate([p[k] for p in parts]) for k in GEO_KEYS}
 
 
 class PipelinedExtraction:
@@ -147,9 +151,8 @@ class PipelinedExtraction:
 
         cand = {k: np.concatenate([f[k] for f in cand_frames]) for k in CANDIDATE_COLUMNS}
         psm, fragments = score._harvest(pending, cand, lib, _geo_concat(all_parts))
-        self.last_wall = time.perf_counter() - t_start
         logger.info(
             "Pipelined extraction: %d candidates -> %d PSMs in %.2f s",
-            len(cand["precursor_idx"]), len(psm["precursor_idx"]), self.last_wall,
+            len(cand["precursor_idx"]), len(psm["precursor_idx"]), time.perf_counter() - t_start,
         )
         return cand, psm, fragments

@@ -16,6 +16,14 @@ never waits for one chunk before enqueuing the next. With several devices
 peak store are uploaded once to each, and every chunk is cut into equal
 row shards, one per device, each scored on its own device
 (``parallel.shard_ops.run_on_devices``); the PSMs equal one device's.
+
+Under a profiler the phases are spans (``utils/profiling``):
+``scoring.library`` (the library arrays and their upload),
+``scoring.geometry`` (the candidates' rows and windows),
+``scoring.launch`` (each chunk enqueued) and ``scoring.assemble`` (the
+outputs concatenated and assembled, after the waits); and each chunk counts
+its cells: ``scoring.cells`` (rows as dispatched times W) and
+``scoring.extent_cells`` (each candidate's frames, at most W).
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ from alphadia_torch.search.common import (
     top_k_fragment_order,
 )
 from alphadia_torch.utils.device import batch_schedule, bucket_window, resolve_device
+from alphadia_torch.utils.profiling import count, enabled, span
 
 logger = logging.getLogger(__name__)
 
@@ -167,6 +176,11 @@ class CandidateScoring:
         """Per-precursor scoring inputs, built once over the library rows."""
         if self._lib_arrays is not None:
             return self._lib_arrays
+        with span("scoring.library"):
+            self._lib_arrays = self._build_library_arrays()
+        return self._lib_arrays
+
+    def _build_library_arrays(self) -> dict:
         cfg = self.config
         prec = self.precursor
         frag = self.fragment
@@ -225,7 +239,6 @@ class CandidateScoring:
             win_lo=win_lo,
             win_hi=win_hi,
         )
-        self._lib_arrays = out
         return out
 
     def _batch_cap(self) -> int:
@@ -245,11 +258,12 @@ class CandidateScoring:
         lib_dev)``."""
         lib = self._library_arrays()
         lib_dev = {}
-        for k in LIB_KEYS:
-            a = lib[k]
-            if k in _F16_KEYS and (not a.size or max(-float(a.min()), float(a.max())) <= 60000.0):
-                a = a.astype(np.float16).astype(np.float32)
-            lib_dev[k] = to_device(a, self.device if device is None else device)
+        with span("scoring.library"):
+            for k in LIB_KEYS:
+                a = lib[k]
+                if k in _F16_KEYS and (not a.size or max(-float(a.min()), float(a.max())) <= 60000.0):
+                    a = a.astype(np.float16).astype(np.float32)
+                lib_dev[k] = to_device(a, self.device if device is None else device)
         return lib, lib_dev
 
     def _row_of(self, precursor_idx: np.ndarray) -> np.ndarray:
@@ -262,35 +276,36 @@ class CandidateScoring:
 
     def _candidate_geometry(self, cand: dict) -> dict:
         """Per-candidate precursor row and elution window geometry."""
-        rows = self._row_of(cand["precursor_idx"])
-        frame_center = cand["frame_center"].astype(np.int32)
-        frame_start = cand["frame_start"].astype(np.int32)
-        frame_stop = cand["frame_stop"].astype(np.int32)
-        # the candidate's scan window; the one dummy scan [0, 1) on 3D data
-        dia = self.dia
-        n = len(frame_center)
-        if dia.has_mobility and "scan_start" in cand:
-            S = dia.n_scan_bins
-            scan_lo = np.clip(cand["scan_start"].astype(np.int64), 0, S - 1).astype(np.int32)
-            scan_hi = np.clip(cand["scan_stop"].astype(np.int64), 1, S).astype(np.int32)
-            scan_hi = np.maximum(scan_hi, scan_lo + 1)
-            mv = np.asarray(dia.mobility_values, np.float32)
-            mobility_width = np.abs(mv[np.clip(scan_hi - 1, 0, S - 1)] - mv[scan_lo]).astype(np.float32)
-        else:
-            scan_lo = np.zeros(n, np.int32)
-            scan_hi = np.ones(n, np.int32)
-            mobility_width = np.zeros(n, np.float32)
-        geo = {
-            "rows": rows.astype(np.int64),
-            "frame_center": frame_center,
-            "frame_start": frame_start,
-            "frame_stop": frame_stop,
-            "scan_lo": scan_lo,
-            "scan_hi": scan_hi,
-            "mobility_width": mobility_width,
-        }
-        geo["window_len"] = window_bucket(geo, 0, n)
-        return geo
+        with span("scoring.geometry"):
+            rows = self._row_of(cand["precursor_idx"])
+            frame_center = cand["frame_center"].astype(np.int32)
+            frame_start = cand["frame_start"].astype(np.int32)
+            frame_stop = cand["frame_stop"].astype(np.int32)
+            # the candidate's scan window; the one dummy scan [0, 1) on 3D data
+            dia = self.dia
+            n = len(frame_center)
+            if dia.has_mobility and "scan_start" in cand:
+                S = dia.n_scan_bins
+                scan_lo = np.clip(cand["scan_start"].astype(np.int64), 0, S - 1).astype(np.int32)
+                scan_hi = np.clip(cand["scan_stop"].astype(np.int64), 1, S).astype(np.int32)
+                scan_hi = np.maximum(scan_hi, scan_lo + 1)
+                mv = np.asarray(dia.mobility_values, np.float32)
+                mobility_width = np.abs(mv[np.clip(scan_hi - 1, 0, S - 1)] - mv[scan_lo]).astype(np.float32)
+            else:
+                scan_lo = np.zeros(n, np.int32)
+                scan_hi = np.ones(n, np.int32)
+                mobility_width = np.zeros(n, np.float32)
+            geo = {
+                "rows": rows.astype(np.int64),
+                "frame_center": frame_center,
+                "frame_start": frame_start,
+                "frame_stop": frame_stop,
+                "scan_lo": scan_lo,
+                "scan_hi": scan_hi,
+                "mobility_width": mobility_width,
+            }
+            geo["window_len"] = window_bucket(geo, 0, n)
+            return geo
 
     def _candidate_arrays(self, cand: dict) -> dict:
         """The per-candidate expansion on the host: the library arrays
@@ -314,14 +329,19 @@ class CandidateScoring:
         equal row shard per device, each scored on its device against that
         device's peak store and library arrays. Returns ``(b - a, the
         shards' pending copies)`` for :meth:`_harvest`."""
-        chunk = {k: pad_to_multiple(v, len(devices)) for k, v in self._geo_chunk(geo, a, b).items()}
-        bounds = shard_bounds(len(chunk["rows"]), len(devices))
-        return b - a, run_on_devices(
-            devices,
-            lambda i, _device: self._dispatch_chunk(
-                devs[i], lib_devs[i], {k: v[bounds[i][0]:bounds[i][1]] for k, v in chunk.items()}, W
-            ),
-        )
+        with span("scoring.launch"):
+            chunk = {k: pad_to_multiple(v, len(devices)) for k, v in self._geo_chunk(geo, a, b).items()}
+            if enabled():
+                count("scoring.cells", len(chunk["rows"]) * W)
+                extent = geo["frame_stop"][a:b].astype(np.int64) - geo["frame_start"][a:b]
+                count("scoring.extent_cells", np.clip(extent, 0, W).sum())
+            bounds = shard_bounds(len(chunk["rows"]), len(devices))
+            return b - a, run_on_devices(
+                devices,
+                lambda i, _device: self._dispatch_chunk(
+                    devs[i], lib_devs[i], {k: v[bounds[i][0]:bounds[i][1]] for k, v in chunk.items()}, W
+                ),
+            )
 
     def _dispatch_chunk(self, dev: dict, lib_dev: dict, chunk: dict, W: int):
         """Enqueue the scoring of one geometry chunk on the device that
@@ -360,17 +380,18 @@ class CandidateScoring:
         copies have landed, and assemble the (psm, fragment) column dicts.
         ``pending`` (:meth:`_dispatch`'s) covers ``cand`` and ``geo`` in order."""
         parts = [host_rows(p, n_rows) for n_rows, p in pending]
-        features = np.concatenate([p["features"] for p in parts])
-        valid = np.concatenate([p["psm_valid"] for p in parts])
-        frag_out = {k: np.concatenate([p[k] for p in parts]) for k in _FRAG_KEEP}
-        # observed fragment m/z from the rounded mass error and the queried m/z
-        fmz = lib["frag_mz"][geo["rows"]]
-        frag_out["mz_observed"] = np.where(
-            frag_out["valid"] & (frag_out["height"] > 0),
-            fmz * (1.0 + frag_out["mass_error"] * 1e-6),
-            0.0,
-        ).astype(np.float32)
-        return self._assemble(cand, lib, geo, features, valid, frag_out)
+        with span("scoring.assemble"):
+            features = np.concatenate([p["features"] for p in parts])
+            valid = np.concatenate([p["psm_valid"] for p in parts])
+            frag_out = {k: np.concatenate([p[k] for p in parts]) for k in _FRAG_KEEP}
+            # observed fragment m/z from the rounded mass error and the queried m/z
+            fmz = lib["frag_mz"][geo["rows"]]
+            frag_out["mz_observed"] = np.where(
+                frag_out["valid"] & (frag_out["height"] > 0),
+                fmz * (1.0 + frag_out["mass_error"] * 1e-6),
+                0.0,
+            ).astype(np.float32)
+            return self._assemble(cand, lib, geo, features, valid, frag_out)
 
     def __call__(self, candidates: dict) -> tuple[dict, dict]:
         """Score all candidates. Returns (psm, fragment) column dicts."""

@@ -15,7 +15,10 @@ so the candidates equal one device's.
 
 ``_submit`` enqueues every batch without waiting for the device;
 ``_harvest_iter`` decodes the batches in order, each once its own copies
-to the host have landed.
+to the host have landed. Under a profiler the phases are spans
+(``utils/profiling``): ``selection.prepare`` (the query arrays and their
+upload), ``selection.launch`` (each batch enqueued) and
+``selection.decode`` (each batch decoded, after its wait).
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ from alphadia_torch.search.common import (
     top_k_fragment_order,
 )
 from alphadia_torch.utils.device import batch_schedule, bucket_window, resolve_device
+from alphadia_torch.utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -220,7 +224,8 @@ class CandidateSelection:
         n = len(self.precursor["precursor_idx"])
         if n == 0:
             return None
-        arrays = self._prepare_batch_arrays()
+        with span("selection.prepare"):
+            arrays = self._prepare_batch_arrays()
         W = arrays["window_len"]
 
         # wide windows: merge `stride` adjacent cycles per cell (a strided
@@ -293,8 +298,12 @@ class CandidateSelection:
         # ceil((b1 - b0) / n_devices) rows. The zero rows past the last
         # precursor fill the last shards; rows past a batch are dropped
         extra = len(devices) - 1
-        padded = {k: np.pad(arrays[k], [(0, extra)] + [(0, 0)] * (arrays[k].ndim - 1)) if extra else arrays[k] for k in keys}
-        batch_devs = [{k: to_device(v, d) for k, v in padded.items()} for d in devices]
+        with span("selection.prepare"):
+            padded = {
+                k: np.pad(arrays[k], [(0, extra)] + [(0, 0)] * (arrays[k].ndim - 1)) if extra else arrays[k]
+                for k in keys
+            }
+            batch_devs = [{k: to_device(v, d) for k, v in padded.items()} for d in devices]
 
         def run(i, b0, size):
             dev = devs[i]
@@ -312,7 +321,8 @@ class CandidateSelection:
         for b0, bsz in batch_schedule(n, cap):
             b1 = min(b0 + bsz, n)
             size = -(-(b1 - b0) // len(devices))
-            pending.append((b0, b1 - b0, run_on_devices(devices, lambda i, _device: run(i, b0, size))))
+            with span("selection.launch"):
+                pending.append((b0, b1 - b0, run_on_devices(devices, lambda i, _device: run(i, b0, size))))
         return {
             "pending": pending,
             "stride": stride,
@@ -332,7 +342,10 @@ class CandidateSelection:
         as its own copies have landed: a consumer (``search/pipelined.py``)
         enqueues scoring while later batches still run."""
         for b0, n_rows, parts in state["pending"]:
-            yield b0, self._decode(b0, host_rows(parts, n_rows), state["stride"], state["f16_scores"])
+            rows = host_rows(parts, n_rows)
+            with span("selection.decode"):
+                frame = self._decode(b0, rows, state["stride"], state["f16_scores"])
+            yield b0, frame
 
     def _decode(self, b0: int, r: dict, stride: int, f16_scores: bool) -> dict:
         rows, cands = np.nonzero(r["valid"])

@@ -5,7 +5,8 @@ from 16 to 1024, Q of 1, 3 and 24), on the edges of ``torch_xic_edges``
 and on the launches that a 4D scoring pass makes; the plain 4D
 extraction rerun on the card, which must give the same bits; the
 pipelined extraction against sequential selection and scoring, both
-enqueuing every batch before they wait for any, the sharded route and the
+enqueuing every batch before they wait for any, a program span around a
+kernel enclosing it in the profiler's trace, the sharded route and the
 drivers over the card named twice against one device, classifier fits on the
 card (one held to a fit on the CPU), the per-run workflow (load ->
 optimization -> extraction), ``SearchStep`` (mzML and TSV library in,
@@ -44,6 +45,7 @@ from alphadia_torch.search.scoring import FEATURE_COLUMNS, CandidateScoring, Sco
 from alphadia_torch.search.selection import CandidateSelection, SelectionConfig
 from alphadia_torch.testing.offset_store import behind_filler
 from alphadia_torch.testing.synthetic import SyntheticConfig, add_synthetic_decoys, make_synthetic_dia
+from alphadia_torch.utils import profiling
 from alphadia_torch.utils.device import batch_schedule
 from torch_xic_edges import EDGE_CASES, W as EDGE_W, edge_inputs, edge_world_config
 
@@ -439,6 +441,35 @@ def test_pipelined_equals_sequential_on_card(card, with_mobility):
     for f in FEATURE_COLUMNS:
         np.testing.assert_allclose(b[f], a[f], rtol=1e-5, atol=1e-6, err_msg=f)
 
+
+
+def test_a_device_span_encloses_its_kernel_in_the_trace(card):
+    """A program span with the card's stream around a kernel launch and a
+    synchronize: its range in the profiler's trace encloses that kernel's
+    device interval, and its event pair's seconds lie within the range."""
+    args, kw = _case_launch(card, "a_intensity")
+    xic_cuda.extract_xic_cuda(*args, **kw)  # built and warm
+    torch.cuda.synchronize(card)
+    profiling.take()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        with profiling.span("test.kernel", card):
+            xic_cuda.extract_xic_cuda(*args, **kw)
+            torch.cuda.synchronize(card)
+    seconds, _ = profiling.take()
+    events = list(prof.profiler.kineto_results.events())
+    (host,) = [
+        (ev.start_ns(), ev.end_ns()) for ev in events
+        if ev.device_type() == torch.autograd.DeviceType.CPU and ev.name() == profiling.SPAN_PREFIX + "test.kernel"
+    ]
+    kernels = [
+        (ev.start_ns(), ev.end_ns()) for ev in events
+        if ev.device_type() == torch.autograd.DeviceType.CUDA and "xic" in ev.name().lower()
+    ]
+    assert len(kernels) == 1
+    start, end = kernels[0]
+    assert host[0] <= start < end <= host[1]
+    assert 0 < seconds["test.kernel"] <= (host[1] - host[0]) * 1e-9
 
 
 @pytest.mark.parametrize("variant", ["intensity", "mz_delta", "scan_window"])

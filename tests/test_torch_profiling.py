@@ -9,17 +9,29 @@ semantics of the JAX package's ``tests/unit/test_profiling.py``:
   ``alphadia_torch.<phase>``, in an active trace;
 - a profiler that cannot start is reported once and the work runs;
 - ``SearchStep`` with ``general.profile_directory`` writes one trace a raw
-  file, ``<dir>/<raw name>/trace.json``, holding that file's phases.
+  file, ``<dir>/<raw name>/trace.json``, holding that file's phases;
+- the drivers' spans and counters: with no profiler active a pipelined
+  extraction records none and opens no profiler range; under a profiler
+  each phase is an ``alphadia_torch.<name>`` event (a host operator, not a
+  user annotation), the phases are siblings, the plain 4D extractions nest
+  in a launch, no span encloses a whole driver call, and ``take`` clears
+  what it returns, as the end of ``profile_trace`` does.
 """
 
 import json
 import logging
 
 import numpy as np
+import pytest
 import torch
 
 import alphadia_torch.search_step as port_step
+from alphadia_torch.rawdata import DiaData
+from alphadia_torch.search.pipelined import PipelinedExtraction
+from alphadia_torch.search.scoring import ScoringConfig
+from alphadia_torch.search.selection import SelectionConfig
 from alphadia_torch.search_step import SearchStep
+from alphadia_torch.testing.synthetic import SyntheticConfig, add_synthetic_decoys, make_synthetic_dia
 from alphadia_torch.utils import profiling
 from alphadia_torch.utils.profiling import TRACE_FILE_NAME, annotate, profile_trace
 from alphadia_torch.workflow.managers.timing_manager import TimingManager, use_timing_manager
@@ -130,3 +142,107 @@ def test_search_step_writes_a_trace_per_raw_file(tmp_path, monkeypatch):
     for run in ("a", "b"):
         names = {e.get("name") for e in _events(prof / run / TRACE_FILE_NAME)}
         assert {"alphadia_torch.load", "alphadia_torch.optimization", "alphadia_torch.extraction"} <= names
+
+
+# ---- the drivers' spans and counters ---------------------------------------
+
+TOP_LEVEL = {
+    "selection.prepare", "selection.launch", "selection.decode",
+    "scoring.library", "scoring.geometry", "scoring.launch", "scoring.assemble",
+}
+
+
+@pytest.fixture(scope="module", params=["3d", "4d"])
+def pipeline(request):
+    """A tiny world's pipelined extraction, in selection batches of 16."""
+    spectra, prec, frag = make_synthetic_dia(SyntheticConfig(
+        n_peptides=40, n_windows=4, n_cycles=100, seed=5, with_mobility=request.param == "4d",
+    ))
+    prec, frag = add_synthetic_decoys(prec, frag)
+    dia = DiaData.from_spectra(spectra, n_scan_bins=8)
+    return lambda: PipelinedExtraction(
+        dia, prec, frag, SelectionConfig(rt_tolerance=30.0, batch_size=16), ScoringConfig(batch_size=64),
+        device="cpu",
+    )()
+
+
+def _traced(fn):
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        fn()
+    return prof
+
+
+def _spans(prof) -> list[tuple[str, int, int]]:
+    """The program spans of a session: (name, start, end), host operators."""
+    out = []
+    for ev in prof.profiler.kineto_results.events():
+        if ev.name().startswith(profiling.SPAN_PREFIX):
+            assert not ev.is_user_annotation(), ev.name()
+            out.append((ev.name()[len(profiling.SPAN_PREFIX):], ev.start_ns(), ev.end_ns()))
+    return out
+
+
+class _Refuse:
+    def __enter__(self):
+        raise AssertionError("recorded outside a profiler session")
+
+    def __exit__(self, *exc):
+        return False
+
+
+def test_no_profiler_no_spans_no_counters(pipeline, monkeypatch):
+    profiling.take()
+
+    def refuse(*a, **k):
+        raise AssertionError("recorded outside a profiler session")
+
+    monkeypatch.setattr(profiling, "record_function", refuse)
+    monkeypatch.setattr(profiling, "_RecordFunctionFast", refuse)
+    monkeypatch.setattr(profiling._Span, "__init__", refuse)
+    monkeypatch.setattr(profiling._recorder, "lock", _Refuse())
+    cand, psm, _ = pipeline()
+    assert len(cand["precursor_idx"]) and len(psm["precursor_idx"])
+    monkeypatch.undo()
+    assert profiling.take() == ({}, {})
+
+
+def test_each_phase_is_a_host_operator_in_the_trace(pipeline, request):
+    profiling.take()
+    spans = _spans(_traced(pipeline))
+    names = {n for n, _, _ in spans}
+    plain = {"ops.xic_4d", "ops.scan_profile"}
+    assert names == (TOP_LEVEL | plain if "4d" in request.node.callspec.id else TOP_LEVEL)
+    # on the CPU no span records device time; the counters are the scoring's
+    seconds, counters = profiling.take()
+    assert seconds == {} and set(counters) == {"scoring.cells", "scoring.extent_cells"}
+
+
+def test_phases_are_siblings_and_none_encloses_the_call(pipeline):
+    profiling.take()
+    spans = _spans(_traced(pipeline))
+    profiling.take()
+    first, last = min(a for _, a, _ in spans), max(b for _, _, b in spans)
+    for name, a, b in spans:
+        outer = [n for n, oa, ob in spans if (oa, ob) != (a, b) and oa <= a and b <= ob]
+        if name in TOP_LEVEL:
+            assert outer == [], name
+        else:  # the plain 4D extractions, inside a launch
+            assert outer and set(outer) <= {"selection.launch", "scoring.launch"}, name
+    # no span encloses the whole driver call
+    assert not [n for n, a, b in spans if a <= first and b >= last]
+
+
+def test_counters_add_and_take_clears(tmp_path):
+    profiling.take()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        with profiling.span("outer", torch.device("cpu")):
+            with profiling.span("inner"):
+                profiling.count("things", 2)
+                profiling.count("things", np.int64(3))
+    assert profiling.take() == ({}, {"things": 5})  # no device time on the CPU
+    assert profiling.take() == ({}, {})
+    with profile_trace(tmp_path):  # its session's counters end with it
+        profiling.count("things", 1)
+    assert profiling.take() == ({}, {})
+    profiling.count("things", 1)  # no session: not counted
+    assert profiling.take() == ({}, {})
