@@ -57,7 +57,7 @@ from alphadia_torch.ops.features import (
     weighted_center_mean,
     weighted_center_of_mass,
 )
-from alphadia_torch.ops.xic import extract_scan_profile, extract_xic_4d
+from alphadia_torch.ops.scan_cells_cuda import extract_scan_profile_cuda, extract_xic_4d_cuda
 from alphadia_torch.ops.xic_cuda import extract_xic_cuda
 
 # transport precision classes of the features (indices into FEATURE_COLUMNS):
@@ -520,10 +520,10 @@ def _precursor_cells_4d(
     shift = prec_ctr.to(torch.int32) - 1
     i4_int_o, i4_dmz_o = (
         _to_window(x, shift)
-        for x in extract_xic_4d(
-            peak_store.packed[:, 0], peak_store.packed[:, 1], peak_store.scanbin, cell_start,
-            islot.reshape(B, KI * O1), imzq.reshape(B, KI * O1), precursor_tol_ppm,
-            cycle_start + shift, n_scan_bins=S, window_len=W, with_mz=True, **xic_kw,
+        for x in extract_xic_4d_cuda(
+            peak_store, cell_start, islot.reshape(B, KI * O1).contiguous(),
+            imzq.reshape(B, KI * O1).contiguous(), precursor_tol_ppm, cycle_start + shift,
+            n_scan_bins=S, window_len=W, with_mz=True, **xic_kw,
         )
     )
     i4_int_o = i4_int_o.reshape(B, KI, O1, S, W)
@@ -569,9 +569,9 @@ def _scan_features(
     c_hi = torch.minimum(frame_stop, cycle_start + window_len)
 
     def profile(slot, mz, tol, Q):
-        return extract_scan_profile(
-            peak_store.packed[:, 0], peak_store.packed[:, 1], peak_store.scanbin, cell_start,
-            slot.reshape(B, Q), mz.reshape(B, Q), tol, c_lo, c_hi, n_scan_bins=S, **xic_kw,
+        return extract_scan_profile_cuda(
+            peak_store, cell_start, slot.reshape(B, Q).contiguous(), mz.reshape(B, Q).contiguous(), tol,
+            c_lo, c_hi, n_scan_bins=S, **xic_kw,
         )
 
     frag_scan = profile(fslot, fmzq, fragment_tol_ppm, KF * O2).reshape(B, KF, O2, S) * smask[:, None, None, :]

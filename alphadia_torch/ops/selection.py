@@ -14,8 +14,9 @@ One call processes a batch of B precursors:
 Outputs a candidate set [B, C] in absolute cycle coordinates.
 ``select_candidates_batch_4d`` keeps the scan axis of ion-mobility data:
 its score map is [B, S, W] and it also returns scan_center, scan_start and
-scan_stop in scan-bin coordinates. Its XICs are the plain per-scan-bin
-extraction (``ops/xic.extract_xic_4d``), as in the JAX package.
+scan_stop in scan-bin coordinates. Its XICs are resolved per scan bin by
+the scan-resolved kernel on the card (``ops/scan_cells_cuda``; on the CPU
+its plain version ``ops/xic.extract_xic_4d``, as in the JAX package).
 """
 
 from __future__ import annotations
@@ -32,8 +33,8 @@ from alphadia_torch.ops.peaks import (
     symmetric_limits_2d,
     symmetric_limits_profile,
 )
+from alphadia_torch.ops.scan_cells_cuda import extract_xic_4d_cuda
 from alphadia_torch.ops.smooth import convolve_profiles
-from alphadia_torch.ops.xic import extract_xic_4d
 from alphadia_torch.ops.xic_cuda import extract_xic_cuda
 
 
@@ -123,9 +124,7 @@ _SCAN_SMOOTH = (0.25, 0.5, 0.25)  # fixed 3-tap kernel along the scan axis
 
 
 def select_candidates_batch_4d(
-    peak_mz,  # f32[N]
-    peak_intensity,  # f32[N]
-    peak_scanbin,  # i16[N]
+    peak_store,  # PeakStore (DiaData.device_arrays)
     cell_start,  # i32 or i64[n_slots, n_bins, n_cycles+1], fine or strided
     frag_slot,  # i32[B, QF]
     frag_mz,  # f32[B, QF]
@@ -163,13 +162,11 @@ def select_candidates_batch_4d(
         n_cycles=n_cycles, n_bins=n_bins, bin_mz_min=bin_mz_min,
         bin_width=bin_width, n_scan_bins=S, slab=slab, window_len=W,
     )
-    dense_frag = extract_xic_4d(
-        peak_mz, peak_intensity, peak_scanbin, cell_start, frag_slot, frag_mz,
-        fragment_tol_ppm, cycle_start, **xic_kw,
+    dense_frag = extract_xic_4d_cuda(
+        peak_store, cell_start, frag_slot, frag_mz, fragment_tol_ppm, cycle_start, **xic_kw,
     )  # [B, QF, S, W]
-    dense_iso = extract_xic_4d(
-        peak_mz, peak_intensity, peak_scanbin, cell_start, iso_slot, iso_mz,
-        precursor_tol_ppm, cycle_start, **xic_kw,
+    dense_iso = extract_xic_4d_cuda(
+        peak_store, cell_start, iso_slot, iso_mz, precursor_tol_ppm, cycle_start, **xic_kw,
     )  # [B, QI, S, W]
 
     def smooth(x):

@@ -1,10 +1,10 @@
 """Dense XIC extraction by slab gather and prefix sums (plain PyTorch).
 
 ``extract_xic`` is the plain version of the CUDA kernel in
-``ops/xic_cuda.py``: the CPU path runs it, and the card's checks hold the
-kernel against it. ``extract_xic_4d`` and ``extract_scan_profile`` (the 4D
-path's XICs resolved per mobility scan bin) are plain PyTorch on every
-device.
+``ops/xic_cuda.py``, and ``extract_xic_4d`` and ``extract_scan_profile``
+(the 4D path's XICs resolved per mobility scan bin) those of the
+scan-resolved kernel in ``ops/scan_cells_cuda.py``: the CPU path runs them,
+and the card's checks hold the kernels against them.
 
 The peak store is sorted by (slot, coarse m/z bin, cycle, m/z) with a
 per-cell offset index, so one XIC query (slot, query m/z +- ppm, cycle
@@ -22,18 +22,12 @@ The prefix sums run in float64: a difference of two float32 prefix sums
 near the end of a full slab loses the low bits of a small cell, while the
 kernel sums each cell directly. Observed m/z is the intensity-weighted mean
 of the matched peaks.
-
-Under a profiler (``utils/profiling``) ``extract_xic_4d`` and
-``extract_scan_profile`` are spans, ``ops.xic_4d`` and ``ops.scan_profile``,
-each with a pair of timing events on the card's stream.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
-
-from alphadia_torch.utils.profiling import span
 
 
 def query_bounds(query_mz, tol_ppm):
@@ -170,24 +164,23 @@ def extract_xic_4d(
     prefix sums, so each (scan, cycle) cell is two boundary lookups. A
     strided ``cell_start`` (``DiaData.cell_index(stride)``) gives the coarse
     view: its cells already merge ``stride`` cycles."""
-    with span("ops.xic_4d", slot_idx.device):
-        W, S = window_len, n_scan_bins
-        dev = slot_idx.device
-        cyc = (cycle_start.long()[:, None, None] + torch.arange(W + 1, device=dev)).clamp(0, n_cycles)
-        rel, g_idx, g_mz, g_int, vmask, qc = _slab_reads(
-            peak_mz, peak_intensity, cell_start, slot_idx, query_mz, tol_ppm, cyc,
-            n_bins=n_bins, bin_mz_min=bin_mz_min, bin_width=bin_width, slab=slab,
-        )
-        onehot = peak_scanbin[g_idx][..., None] == torch.arange(S, device=dev)  # [B, Q, K, S]
+    W, S = window_len, n_scan_bins
+    dev = slot_idx.device
+    cyc = (cycle_start.long()[:, None, None] + torch.arange(W + 1, device=dev)).clamp(0, n_cycles)
+    rel, g_idx, g_mz, g_int, vmask, qc = _slab_reads(
+        peak_mz, peak_intensity, cell_start, slot_idx, query_mz, tol_ppm, cyc,
+        n_bins=n_bins, bin_mz_min=bin_mz_min, bin_width=bin_width, slab=slab,
+    )
+    onehot = peak_scanbin[g_idx][..., None] == torch.arange(S, device=dev)  # [B, Q, K, S]
 
-        def scan_cells(v):  # [B, Q, K] -> [B, Q, S, W]
-            return _cell_sums(torch.where(onehot, v[..., None], 0.0), rel).transpose(2, 3)
+    def scan_cells(v):  # [B, Q, K] -> [B, Q, S, W]
+        return _cell_sums(torch.where(onehot, v[..., None], 0.0), rel).transpose(2, 3)
 
-        intensity = scan_cells(torch.where(vmask, g_int, 0.0))
-        if not with_mz:
-            return intensity
-        dmz_sum = scan_cells(torch.where(vmask, g_int * (g_mz - qc[:, :, None]), 0.0))
-        return intensity, torch.where(intensity > 0, dmz_sum / intensity.clamp(min=1e-12), 0.0)
+    intensity = scan_cells(torch.where(vmask, g_int, 0.0))
+    if not with_mz:
+        return intensity
+    dmz_sum = scan_cells(torch.where(vmask, g_int * (g_mz - qc[:, :, None]), 0.0))
+    return intensity, torch.where(intensity > 0, dmz_sum / intensity.clamp(min=1e-12), 0.0)
 
 
 def extract_scan_profile(
@@ -211,16 +204,15 @@ def extract_scan_profile(
     """Mobility scan profiles f32[B, Q, S]: matched intensity summed over the
     cycle window [cycle_lo, cycle_hi), per scan bin. Only the window's two
     boundaries are looked up; the sum over the slab runs in float64."""
-    with span("ops.scan_profile", slot_idx.device):
-        dev = slot_idx.device
-        cyc = torch.stack([cycle_lo.long(), cycle_hi.long()], dim=-1).clamp(0, n_cycles)[:, None, :]
-        _, g_idx, _, g_int, vmask, _ = _slab_reads(
-            peak_mz, peak_intensity, cell_start, slot_idx, query_mz, tol_ppm, cyc,
-            n_bins=n_bins, bin_mz_min=bin_mz_min, bin_width=bin_width, slab=slab,
-        )
-        onehot = peak_scanbin[g_idx][..., None] == torch.arange(n_scan_bins, device=dev)
-        v = torch.where(vmask, g_int, 0.0)[..., None]
-        return torch.where(onehot, v, 0.0).sum(dim=2, dtype=torch.float64).float()
+    dev = slot_idx.device
+    cyc = torch.stack([cycle_lo.long(), cycle_hi.long()], dim=-1).clamp(0, n_cycles)[:, None, :]
+    _, g_idx, _, g_int, vmask, _ = _slab_reads(
+        peak_mz, peak_intensity, cell_start, slot_idx, query_mz, tol_ppm, cyc,
+        n_bins=n_bins, bin_mz_min=bin_mz_min, bin_width=bin_width, slab=slab,
+    )
+    onehot = peak_scanbin[g_idx][..., None] == torch.arange(n_scan_bins, device=dev)
+    v = torch.where(vmask, g_int, 0.0)[..., None]
+    return torch.where(onehot, v, 0.0).sum(dim=2, dtype=torch.float64).float()
 
 
 def extract_xic_packed(

@@ -272,12 +272,10 @@ class DiaData:
         ``device=None`` is the CUDA card, as for every entry point of the
         port; without one it raises unless ``"cpu"`` is asked for.
 
-        Returns ``peak_store`` (a :class:`PeakStore`), the views
-        ``peak_mz``, ``peak_intensity`` and ``peak_scanbin`` of its planes
-        (for the plain 4D extractions), ``cell_start`` (i32, or i64 past 2**31
-        stored entries, never narrowed), ``cycle_rt`` f32 and the static
-        ``n_cycles``. The coarse view shares the fine view's peak store on the
-        device.
+        Returns ``peak_store`` (a :class:`PeakStore`), ``cell_start`` (i32,
+        or i64 past 2**31 stored entries, never narrowed), ``cycle_rt`` f32
+        and the static ``n_cycles``. The coarse view shares the fine view's
+        peak store on the device.
         """
         device = resolve_device(device)
         key = (str(device), stride)
@@ -289,12 +287,7 @@ class DiaData:
                     torch.from_numpy(a).to(device)
                     for a in (self.packed_store(), self.cycle_plane(), self.scanbin_plane())
                 ))
-                d = {
-                    "peak_store": store,
-                    "peak_mz": store.packed[:, 0],
-                    "peak_intensity": store.packed[:, 1],
-                    "peak_scanbin": store.scanbin,
-                }
+                d = {"peak_store": store}
             cs, crt, n_cycles = self.cell_index(stride)
             d["cell_start"] = torch.from_numpy(cs).to(device)
             d["cycle_rt"] = torch.from_numpy(crt).to(device)

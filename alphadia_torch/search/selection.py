@@ -278,7 +278,6 @@ class CandidateSelection:
             # intermediates are S times the 3D footprint, so cap the batch.
             # The strided cell_start alone coarsens: cells sum `stride` cycles
             select = select_candidates_batch_4d
-            peak_keys = ("peak_mz", "peak_intensity", "peak_scanbin")
             cap = min(cfg.batch_size, 4096)
             static_kw.update(
                 n_scan_bins=dia.n_scan_bins,
@@ -289,7 +288,6 @@ class CandidateSelection:
             )
         else:
             select = select_candidates_batch
-            peak_keys = ("peak_store",)
             cap = cfg.batch_size
             static_kw.update(cycle_stride=stride)
         keys = ("frag_slot", "frag_mz", "iso_slot", "iso_mz", "cycle_start", "n_valid_fragments")
@@ -309,7 +307,7 @@ class CandidateSelection:
             dev = devs[i]
             sl = {k: v[b0 + i * size : b0 + (i + 1) * size] for k, v in batch_devs[i].items()}
             res = select(
-                *(dev[k] for k in peak_keys), dev["cell_start"],
+                dev["peak_store"], dev["cell_start"],
                 sl["frag_slot"], sl["frag_mz"], sl["iso_slot"], sl["iso_mz"],
                 sl["cycle_start"], kernels[i],
                 cfg.fragment_mz_tolerance, cfg.precursor_mz_tolerance,

@@ -21,9 +21,9 @@ Enable per run with ``general.profile_directory`` or ``alphadia-torch
 name>``. A profiler that cannot start or stop (no CUPTI on the host, say)
 is reported by one warning, and the search runs on untraced.
 
-**Spans and counters.** The extraction drivers and the plain 4D extractions
-mark their phases with ``span(name)`` and count their work with
-``count(name, n)``:
+**Spans and counters.** The extraction drivers and the 4D extractions
+(``ops/scan_cells_cuda``) mark their phases with ``span(name)`` and count
+their work with ``count(name, n)``:
 
 - the gate: both record only while a ``torch.profiler`` session is active
   (``profile_trace``, or any other session of the process). With none, a

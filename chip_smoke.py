@@ -18,16 +18,23 @@ Phases, in order; any failure exits non-zero:
 3. the kernel against its plain PyTorch version on the card, on every
    launch of a recorded warm-up of both paths: variants (a) intensity
    only, (b) with the m/z plane as a delta, (d) the coarse view on the 3D
-   path, (c) the scan-window crop on every 4D scoring batch; and each path
-   on the card against the same path on the CPU on a small world, scoring
-   in float32 and in bfloat16;
-4. both paths at full width, the kernel's launches counted per pass; the
+   path, (c) the scan-window crop on every 4D scoring batch; every call of
+   the scan-resolved kernel (the 4D extractions) held to its plain version
+   in the same way, here and wherever a phase records the kernels' calls;
+   and each path on the card against the same path on the CPU on a small
+   world, scoring in float32 and in bfloat16;
+4. both paths at full width, the kernels' launches counted per pass (the
+   scan-resolved kernel's on the 4D passes, and on them only); the
    truth, PSM (and, 4D, scan-centre) shares; then more timed passes for
    the spread (``--profile``: one traced pass of each path);
 5. the kernel alone (CUDA events) on each recorded launch, back to back and
    with the L2 flushed before each run, beside the plain version, the least
    time the card needs for the bytes the function must move, and the bytes
-   the kernel's loads, copies and stores cover;
+   the kernel's loads, copies and stores cover; (b) the scan-resolved kernel
+   of the 4D extractions (``csrc/scan_cells.cu``) alone on a store at the 4D
+   benchmark cell's density and at its launch shapes, warm and L2-flushed,
+   beside its byte bound and the plain version's time and peak memory,
+   each launch held to the plain version;
 6. IDs at 1% FDR, on both worlds: ``PipelinedExtraction`` against the
    sequential drivers (walls, launches, the same candidates and PSMs), then
    ``FDRManager.fit_predict`` on the pipelined PSMs (the network fitted on
@@ -211,7 +218,10 @@ Phases, in order; any failure exits non-zero:
    [4]'s candidates, every PSM feature within ``FEATURE_REL_TOL``; the
    device memory freed;
 19. the ``{"kernels": [...]}`` line (``xic``: the launches of phases
-   [4]-[14], [16a] and [17b]; ``xic_sharded``: those of [15b]'s sharded
+   [4]-[14], [16a] and [17b]; ``scan_cells``: the scan-resolved kernel's
+   launches recorded on the main paths of [3] (the warm-up of [4]'s and
+   [6]'s paths), [7]-[14], [15b], [16a] and [17b], each held to the plain
+   version, timed on [5b]'s; ``xic_sharded``: those of [15b]'s sharded
    drivers; ``xic_index64``: the int64 instantiation's launches on [18b]'s
    main paths, timed on [18a]'s; the processes of [15c], [15d] and [16c]
    count in none), then the card's name and power limit, then the
@@ -221,6 +231,7 @@ Phases, in order; any failure exits non-zero:
 from __future__ import annotations
 
 import argparse
+import functools
 import hashlib
 import json
 import os
@@ -428,12 +439,14 @@ def score(dia, prec, frag, cands, device, compute_dtype, batch_size=8192):
 
 def main_path(world, tag="", device=None, rec=None):
     """The three passes of one path, each timed on the host clock after a
-    synchronise, with the kernel's launch count set to 0 just before each
+    synchronise, with the kernels' launch counts set to 0 just before each
     and read just after; returns (outputs, seconds, launches), keyed by
-    pass name + ``tag``. With ``rec`` the kernel's calls are recorded."""
+    pass name + ``tag``; the scan-resolved kernel's counts go to
+    ``SCAN_PASS_LAUNCHES`` under the same keys. With ``rec`` the kernels'
+    calls are recorded."""
     import torch
 
-    from alphadia_torch.ops import xic_cuda
+    from alphadia_torch.ops import scan_cells_cuda, xic_cuda
 
     dia, prec, frag = world
     device = device or DEVICE
@@ -448,18 +461,24 @@ def main_path(world, tag="", device=None, rec=None):
         if rec is not None:
             rec.stage = name
         torch.cuda.synchronize()
-        xic_cuda.launches = 0
+        xic_cuda.launches = scan_cells_cuda.launches = 0
         t0 = time.perf_counter()
         out[name] = fn()
         torch.cuda.synchronize()
         secs[name] = time.perf_counter() - t0
         launches[name] = xic_cuda.launches
+        SCAN_PASS_LAUNCHES[name] = scan_cells_cuda.launches
     return out, secs, launches
 
 
 class Recorder:
-    """Wraps the kernel's wrapper where the path calls it, and keeps each
-    call's arguments (the device tensors stay referenced)."""
+    """Wraps the kernels' wrappers where the path calls them, and keeps each
+    call's arguments (the device tensors stay referenced): the XIC kernel's
+    in ``calls``, the scan-resolved kernel's (``ops/scan_cells_cuda``, the
+    4D extractions) in ``scan_calls``. On a clean exit the scan-resolved
+    kernel's launches in the block must equal its recorded calls; each call
+    runs again and is held to the plain version (``hold_scan_calls``), and
+    the launches add to ``SCAN_CELLS_MAIN``."""
 
     def __init__(self):
         import alphadia_torch.ops.scoring as ops_scoring
@@ -469,20 +488,103 @@ class Recorder:
         self.modules = (ops_selection, ops_scoring, plotting)
         self.calls = []
         self.original = ops_selection.extract_xic_cuda
+        # (module, wrapper name) of each call site of the scan-resolved kernel
+        self.scan_sites = (
+            (ops_selection, "extract_xic_4d_cuda"),
+            (ops_scoring, "extract_xic_4d_cuda"),
+            (ops_scoring, "extract_scan_profile_cuda"),
+        )
+        self.scan_calls = []
+        self.scan_launches = 0
 
     def __enter__(self):
+        from alphadia_torch.ops import scan_cells_cuda
+
         def recording(*args, **kw):
             self.calls.append((self.stage, args, kw))
             return self.original(*args, **kw)
 
+        def scan_recording(fn):
+            def wrapped(*args, **kw):
+                self.scan_calls.append((self.stage, fn, args, kw))
+                before = scan_cells_cuda.launches
+                out = fn(*args, **kw)
+                self.scan_launches += scan_cells_cuda.launches - before
+                return out
+
+            return wrapped
+
         self.stage = None
         for m in self.modules:
             m.extract_xic_cuda = recording
+        self.scan_original = [getattr(m, fn) for m, fn in self.scan_sites]
+        for (m, fn), orig in zip(self.scan_sites, self.scan_original):
+            setattr(m, fn, scan_recording(orig))
         return self
 
-    def __exit__(self, *exc):
+    def __exit__(self, exc_type, *exc):
         for m in self.modules:
             m.extract_xic_cuda = self.original
+        for (m, fn), orig in zip(self.scan_sites, self.scan_original):
+            setattr(m, fn, orig)
+        if exc_type is None:
+            hold_scan_calls(self)
+
+
+# the scan-resolved kernel's launches on the main paths (every Recorder
+# block: [3], [7]-[14], [15b], [16a], [17b]), each held to the plain
+# version; the ``scan_cells`` entry's count
+SCAN_CELLS_MAIN = {"launches": 0, "held": 0, "max_abs_err": 0.0}
+# its launches per pass of ``main_path``, keyed as ``launches``
+SCAN_PASS_LAUNCHES = {}
+# rows of a recorded call that the plain version takes at a time when held
+SCAN_HOLD_ROWS = 256
+
+
+def hold_scan_calls(rec) -> None:
+    """Each recorded call of the scan-resolved kernel run again on its own
+    inputs and held to the plain version (``ops/xic.extract_xic_4d`` or
+    ``extract_scan_profile``) at the card tests' tolerance; raises unless
+    every call launched the kernel once."""
+    import torch
+
+    from alphadia_torch.ops import scan_cells_cuda
+    from alphadia_torch.ops.xic import extract_scan_profile, extract_xic_4d
+
+    if not rec.scan_calls:
+        return
+    if rec.scan_launches != len(rec.scan_calls):
+        raise AssertionError(
+            f"{rec.scan_launches} scan-resolved kernel launches counted, {len(rec.scan_calls)} wrapper calls recorded"
+        )
+    t0, worst, stages = time.perf_counter(), 0.0, {}
+    for stage, fn, args, kw in rec.scan_calls:
+        store, cell_start, slot, qmz, tol, *cycles = args
+        plain = extract_scan_profile if fn is scan_cells_cuda.extract_scan_profile_cuda else extract_xic_4d
+        got = fn(*args, **kw)
+        got = got if isinstance(got, tuple) else (got,)
+        # the plain version in pieces of rows, so that its [rows, Q, slab, S]
+        # float64 intermediates stay small beside what the path itself held
+        for a in range(0, slot.shape[0], SCAN_HOLD_ROWS):
+            b = a + SCAN_HOLD_ROWS
+            want = plain(store.packed[:, 0], store.packed[:, 1], store.scanbin, cell_start, slot[a:b], qmz[a:b], tol,
+                         *(c[a:b] for c in cycles), **kw)
+            for g, w, atol in zip(got, want if isinstance(want, tuple) else (want,), (0.0, 1e-9)):
+                torch.testing.assert_close(g[a:b], w, rtol=1e-6, atol=atol,
+                                           msg=lambda m: f"scan-resolved kernel, {stage}, rows {a}-{b}: {m}")
+                worst = max(worst, float((g[a:b] - w).abs().max()) if w.numel() else 0.0)
+            del want
+        stages[stage] = stages.get(stage, 0) + 1
+        del got
+    torch.cuda.synchronize()
+    SCAN_CELLS_MAIN["launches"] += rec.scan_launches
+    SCAN_CELLS_MAIN["held"] += len(rec.scan_calls)
+    SCAN_CELLS_MAIN["max_abs_err"] = max(SCAN_CELLS_MAIN["max_abs_err"], worst)
+    log(
+        f"[scan_cells] {rec.scan_launches} launches of the scan-resolved kernel recorded per stage {json.dumps(stages)}, "
+        f"each held to the plain version (max abs err {worst:.3g}) in {time.perf_counter() - t0:.2f} s; on the main "
+        f"paths so far {SCAN_CELLS_MAIN['launches']}"
+    )
 
 
 def variant(kw) -> str:
@@ -778,10 +880,11 @@ def plain_peak_bytes(args, kw) -> int:
 
 
 class Annotate:
-    """Wraps the 4D path's plain extractions in ``record_function`` ranges
-    (for one traced pass only), so the trace can sum their device time."""
+    """Wraps the 4D path's extractions (the scan-resolved kernel's wrappers)
+    in ``record_function`` ranges (for one traced pass only), so the trace
+    can sum their device time."""
 
-    NAMES = ("extract_xic_4d", "extract_scan_profile")
+    NAMES = ("extract_xic_4d_cuda", "extract_scan_profile_cuda")
 
     def __enter__(self):
         import alphadia_torch.ops.scoring as ops_scoring
@@ -809,7 +912,7 @@ class Annotate:
 
 def profile_main_path(world, tag, out_dir: Path):
     """Trace one more pass of a path with torch.profiler: device busy share,
-    the XIC kernel's device time, the device time under the 4D plain
+    the XIC kernel's device time, the device time under the 4D
     extractions, and the ops that take the device time (table written to
     ``out_dir/profile_main_path{tag}.txt``)."""
     import torch
@@ -917,6 +1020,10 @@ def path_checks(label, tag, world, out, launches, kernel_passes):
         f"{len(frags['mz'])}, wide-window candidates {len(wide['precursor_idx'])}"
     )
     log(f"[4] {label}: kernel launches per pass: {json.dumps(launches)}")
+    scan = {p + tag: SCAN_PASS_LAUNCHES[p + tag] for p in ("selection", "scoring", "selection_wide")}
+    log(f"[4] {label}: scan-resolved kernel launches per pass: {json.dumps(scan)}")
+    if (min(scan.values()) <= 0) if tag else any(scan.values()):
+        raise AssertionError(f"{label}: the 4D passes and only they launch the scan-resolved kernel: {scan}")
     log(
         f"[4] {label}: truth share (best candidate within 3 cycles of the apex): {share:.4f} (bound {TRUTH_SHARE_MIN}); "
         f"wide window {share_wide:.4f} (bound {wide_min})"
@@ -4879,6 +4986,169 @@ def phase17c(name, card):
 
 
 # ---------------------------------------------------------------------------
+# 5b. the scan-resolved kernel alone at the 4D benchmark cell's shapes
+# ---------------------------------------------------------------------------
+# perfbench's timstof4d cell: 8 scan bins, 1-Th rows, 700 cycles, selection
+# windows of 128 cycles read through a 4,096-peak slab, batches of 2,048;
+# a row holds ~2,000 stored peaks over such a window (13 a cell here), and
+# the store has 4 of the cell's 32 slots, so its ~44 M rows fit beside the
+# plain version's ~38 GB
+CELL_4D = dict(n_slots=4, n_bins=1200, bin_mz_min=200.0, n_cycles=700, peaks_per_cell=13.0, n_scan_bins=8,
+               slab=4096, batch=2048, window=128, score_window=32, profile_cycles=12, masked=0.4)
+
+
+def scan_cells_store(seed=20):
+    """A peak store at ``CELL_4D``'s density on the card, sorted by (slot,
+    bin, cycle, m/z), and its int32 ``cell_start``."""
+    import torch
+
+    from alphadia_torch.rawdata.diadata import PeakStore
+
+    c = CELL_4D
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    n_rows, C = c["n_slots"] * c["n_bins"], c["n_cycles"]
+    counts = torch.poisson(torch.full((n_rows * C,), c["peaks_per_cell"], device=DEVICE), generator=g).long()
+    starts = torch.zeros(n_rows * C + 1, dtype=torch.long, device=DEVICE)
+    starts[1:] = torch.cumsum(counts, 0)
+    n = int(starts[-1])
+    idx = torch.arange(n_rows, device=DEVICE)[:, None] * C + torch.arange(C + 1, device=DEVICE)
+    cell_start = starts[idx].to(torch.int32).reshape(c["n_slots"], c["n_bins"], C + 1)
+    cell = torch.repeat_interleave(torch.arange(n_rows * C, device=DEVICE), counts)
+    u = torch.rand(n, generator=g, device=DEVICE, dtype=torch.float64)
+    order = torch.argsort(cell.double() + u)  # each cell's peaks by m/z
+    bin_of = (cell // C) % c["n_bins"]
+    n_pad = -(-n // 8) * 8
+    packed = torch.zeros((n_pad, 2), dtype=torch.float32, device=DEVICE)
+    packed[:n, 0] = (c["bin_mz_min"] + bin_of + u[order]).float()
+    packed[n:, 0] = float("inf")
+    packed[:n, 1] = torch.exp(8.0 + 1.5 * torch.randn(n, generator=g, device=DEVICE))
+    scanbin = torch.zeros(n_pad, dtype=torch.int16, device=DEVICE)
+    scanbin[:n] = torch.randint(0, c["n_scan_bins"], (n,), generator=g, device=DEVICE).to(torch.int16)
+    cycle = torch.zeros(n_pad, dtype=torch.int16, device=DEVICE).view(torch.uint16)
+    return PeakStore(packed, cycle, scanbin), cell_start
+
+
+def scan_cells_queries(store, cell_start, Q, seed):
+    """[B, Q] queries of ``CELL_4D``'s batch: each at a stored peak's m/z in
+    a random slot, ``masked`` of them -1, at a window start that keeps the
+    window inside the run."""
+    import torch
+
+    c = CELL_4D
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    B, C = c["batch"], c["n_cycles"]
+    pick = torch.randint(0, int(cell_start.reshape(-1)[-1]), (B, Q), generator=g, device=DEVICE)
+    qmz = store.packed[pick, 0].contiguous()
+    slot = torch.randint(0, c["n_slots"], (B, Q), generator=g, device=DEVICE).to(torch.int32)
+    slot[torch.rand((B, Q), generator=g, device=DEVICE) < c["masked"]] = -1
+    c0 = torch.randint(0, C - c["window"], (B,), generator=g, device=DEVICE).to(torch.int32)
+    return slot, qmz, c0
+
+
+def scan_cells_work(cell_start, slot, qmz, lo, hi, kw, planes) -> int:
+    """Bytes one launch must move: each peak that some query's slab covers
+    once (m/z, intensity and scan bin, 10 B), each valid query's W+1 window
+    edges (4 B), the queries, and every output plane once."""
+    import torch
+
+    from alphadia_torch.ops.xic import query_rows
+
+    L = cell_start.shape[2]
+    row = query_rows(slot, qmz, n_slots=cell_start.shape[0], n_bins=kw["n_bins"], bin_mz_min=kw["bin_mz_min"],
+                     bin_width=kw["bin_width"])
+    flat = cell_start.reshape(-1).long()
+    r0 = flat[row * L + lo.long().clamp(0, kw["n_cycles"])[:, None]]
+    length = torch.where(slot >= 0, (flat[row * L + hi.long().clamp(0, kw["n_cycles"])[:, None]] - r0).clamp(0, kw["slab"]), 0)
+    edge = torch.zeros(int(flat.max()) + 1, dtype=torch.int32, device=slot.device)
+    live = length > 0
+    edge.index_add_(0, r0[live], torch.ones_like(r0[live], dtype=torch.int32))
+    edge.index_add_(0, (r0 + length)[live], -torch.ones_like(r0[live], dtype=torch.int32))
+    peaks = int((torch.cumsum(edge, 0)[:-1] > 0).sum())
+    B, Q = slot.shape
+    W = kw.get("window_len", 1)
+    return peaks * 10 + int((slot >= 0).sum()) * (W + 1) * 4 + B * Q * 8 + B * 8 + planes * B * Q * kw["n_scan_bins"] * W * 4
+
+
+def phase5b(name, card) -> dict:
+    """The scan-resolved kernel (``ops/scan_cells_cuda``) alone on a store at
+    the 4D cell's density and its launch shapes: selection's fragment (Q 24)
+    and isotope (Q 3) XICs over 128 cycles, scoring's precursor cells with
+    the m/z plane (Q 3, W 32) and its scan profiles (Q 24 and 3). Per launch
+    the device ms warm and L2-flushed, the bound (bytes at 3.35 TB/s), the
+    plain version's ms and peak memory; each launch held to the plain version
+    at the card tests' tolerance. Returns the ``scan_cells`` entry's numbers."""
+    import torch
+
+    from alphadia_torch.ops import scan_cells_cuda
+    from alphadia_torch.ops.xic import extract_scan_profile, extract_xic_4d
+
+    t0 = time.perf_counter()
+    c = CELL_4D
+    store, cs = scan_cells_store()
+    base = dict(n_cycles=c["n_cycles"], n_bins=c["n_bins"], bin_mz_min=c["bin_mz_min"], bin_width=1.0,
+                n_scan_bins=c["n_scan_bins"], slab=c["slab"])
+    log(f"[5b] store at the 4D cell's density: {store.packed.shape[0]} rows, {c['n_slots']} slots x {c['n_bins']} "
+        f"bins x {c['n_cycles']} cycles, made in {time.perf_counter() - t0:.2f} s ({name}, {card})")
+    launches = []
+    for label, Q, tol, mode, W, with_mz in (
+        ("selection frag", 24, 10.0, "cells", c["window"], False),
+        ("selection iso", 3, 5.0, "cells", c["window"], False),
+        ("scoring prec cells", 3, 5.0, "cells", c["score_window"], True),
+        ("scoring frag profile", 24, 10.0, "profile", 1, False),
+        ("scoring prec profile", 3, 5.0, "profile", 1, False),
+    ):
+        slot, qmz, c0 = scan_cells_queries(store, cs, Q, seed=len(launches))
+        if mode == "cells":
+            kw = dict(base, window_len=W, with_mz=with_mz)
+            args = (store, cs, slot, qmz, tol, c0)
+            lo, hi = c0, c0 + W
+            kernel = functools.partial(scan_cells_cuda.extract_xic_4d_cuda, *args, **kw)
+            plain = functools.partial(extract_xic_4d, store.packed[:, 0], store.packed[:, 1], store.scanbin,
+                                      cs, slot, qmz, tol, c0, **kw)
+        else:
+            lo, hi = c0 + c["window"] // 2, c0 + c["window"] // 2 + c["profile_cycles"]
+            args = (store, cs, slot, qmz, tol, lo, hi)
+            kernel = functools.partial(scan_cells_cuda.extract_scan_profile_cuda, *args, **base)
+            plain = functools.partial(extract_scan_profile, store.packed[:, 0], store.packed[:, 1], store.scanbin,
+                                      cs, slot, qmz, tol, lo, hi, **base)
+            kw = base
+        launches.append((label, kernel, plain, scan_cells_work(cs, slot, qmz, lo, hi, kw, 2 if with_mz else 1)))
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=DEVICE)
+    tot = dict(ms=0.0, flushed_ms=0.0, plain_ms=0.0, bytes=0, max_abs_err=0.0)
+    for label, kernel, plain, nbytes in launches:
+        got, want = kernel(), plain()
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        for g, w, atol in zip(got, want, (0.0, 1e-9)):
+            torch.testing.assert_close(g, w, rtol=1e-6, atol=atol)
+            tot["max_abs_err"] = max(tot["max_abs_err"], float((g - w).abs().max()))
+        if not float(want[0].sum()) > 0:
+            raise AssertionError(f"[5b] {label}: no peak matched")
+        del got, want
+        k_ms = device_ms(kernel, KERNEL_REPS)
+        f_ms = device_ms_flushed(kernel, KERNEL_REPS, flush)
+        torch.cuda.synchronize()
+        base_mem = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        p_ms = device_ms(plain, PLAIN_REPS, warmup=1)
+        p_mem = torch.cuda.max_memory_allocated() - base_mem
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        log(f"[5b] {label:20s} kernel {k_ms:.4f} ms (L2 flushed {f_ms:.4f}, {bound / f_ms:.3f} of bound), bound "
+            f"{bound:.4f} ms ({nbytes / 1e6:.2f} MB), plain {p_ms:.4f} ms (peak {p_mem / 2**30:.2f} GiB), "
+            f"{p_ms / f_ms:.0f} times the kernel's ({name}, {card})")
+        tot["ms"] += k_ms
+        tot["flushed_ms"] += f_ms
+        tot["plain_ms"] += p_ms
+        tot["bytes"] += nbytes
+    del flush, store, cs, launches
+    torch.cuda.empty_cache()
+    tot["bound_ms"] = tot["bytes"] / HBM_BYTES_PER_S * 1e3
+    log(f"[5b] the five launches: kernel {tot['flushed_ms']:.4f} ms L2-flushed ({tot['bound_ms'] / tot['flushed_ms']:.3f} "
+        f"of bound), bound {tot['bound_ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms; max abs err "
+        f"{tot['max_abs_err']:.3g}; phase [5b] took {time.perf_counter() - t0:.2f} s ({name}, {card})")
+    return tot
+
+
+# ---------------------------------------------------------------------------
 # 18. a store past 2**31 entries: the int64 cell index
 # ---------------------------------------------------------------------------
 # rows of filler placed on the card before the recorded launches' stores in
@@ -5167,6 +5437,7 @@ def main(argv=None) -> int:
         )
     bound_ms = max(tot["bytes"] / HBM_BYTES_PER_S, tot["ops"] / FP32_OPS_PER_S) * 1e3
     bound_by = "bytes" if tot["bytes"] / HBM_BYTES_PER_S >= tot["ops"] / FP32_OPS_PER_S else "operations"
+    scan_cells = phase5b(name, card)
 
     # ---- 6. IDs at 1% FDR ---------------------------------------------------
     classifier_card_vs_cpu(name, card)  # also the process's first fit on the card
@@ -5292,6 +5563,9 @@ def main(argv=None) -> int:
         f"main paths ({sum(launches64.values())} in all, the xic_index64 entry's): {json.dumps(launches64)} ({name}, {card})")
 
     # ---- 19. summary lines --------------------------------------------------
+    log(f"[19] scan-resolved kernel launches on the main paths: {SCAN_CELLS_MAIN['launches']} (the scan_cells "
+        f"entry's), {SCAN_CELLS_MAIN['held']} held to the plain version, max abs err "
+        f"{SCAN_CELLS_MAIN['max_abs_err']:.3g} ({name}, {card})")
     kernels = {
         "kernels": [
             {
@@ -5319,6 +5593,19 @@ def main(argv=None) -> int:
                 "plain_ms": route["plain_ms"],
                 "bound_ms": route["bound_ms"],
                 "bound_by": route["bound_by"],
+                "library_ms": None,
+            },
+            {
+                "name": "scan_cells",
+                "route": "cuda",
+                "source": "alphadia_torch/csrc/scan_cells.cu",
+                "replaces": None,
+                "launches": SCAN_CELLS_MAIN["launches"],
+                "max_abs_err": max(scan_cells["max_abs_err"], SCAN_CELLS_MAIN["max_abs_err"]),
+                "ms": scan_cells["ms"],
+                "plain_ms": scan_cells["plain_ms"],
+                "bound_ms": scan_cells["bound_ms"],
+                "bound_by": "bytes",
                 "library_ms": None,
             },
             {

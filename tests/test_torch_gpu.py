@@ -4,6 +4,11 @@ full, a block of masked queries only, a slab of exactly ``slab`` peaks, W
 from 16 to 1024, Q of 1, 3 and 24), on the edges of ``torch_xic_edges``
 and on the launches that a 4D scoring pass makes; the plain 4D
 extraction rerun on the card, which must give the same bits; the
+scan-resolved kernel of the 4D extractions (``ops/scan_cells_cuda``) against
+the plain versions at the 4D cell's shapes (cells and profiles, the m/z
+plane, masked queries, scan bins out of range, a slab that cuts a window, a
+strided index at W 512, the int64 index), its refusals, and the 4D drivers
+launching it without entering the plain versions; the
 pipelined extraction against sequential selection and scoring, both
 enqueuing every batch before they wait for any, a program span around a
 kernel enclosing it in the profiler's trace, the sharded route and the
@@ -35,9 +40,11 @@ import pytest
 import torch
 
 from alphadia_torch.models.classifier import BinaryClassifier
+from alphadia_torch.ops import scan_cells_cuda
 from alphadia_torch.ops import scoring as ops_scoring
+from alphadia_torch.ops import xic as ops_xic
 from alphadia_torch.ops import xic_cuda
-from alphadia_torch.ops.xic import extract_xic_4d, extract_xic_packed
+from alphadia_torch.ops.xic import extract_scan_profile, extract_xic_4d, extract_xic_packed
 from alphadia_torch.rawdata import DiaData
 from alphadia_torch.search.common import kernel_available
 from alphadia_torch.search.pipelined import PipelinedExtraction
@@ -390,7 +397,8 @@ def test_xic_4d_reruns_bit_identical(card):
         n_cycles=dev["n_cycles"], n_bins=dia.n_bins, bin_mz_min=dia.bin_mz_min,
         bin_width=dia.coarse_bin_width, n_scan_bins=dia.n_scan_bins, window_len=64, with_mz=True,
     )
-    args = (dev["peak_mz"], dev["peak_intensity"], dev["peak_scanbin"], dev["cell_start"], t(slot), t(qmz), 15.0, t(c0))
+    args = (dev["peak_store"].packed[:, 0], dev["peak_store"].packed[:, 1], dev["peak_store"].scanbin, dev["cell_start"],
+            t(slot), t(qmz), 15.0, t(c0))
     first = extract_xic_4d(*args, **kw)
     again = extract_xic_4d(*args, **kw)
     for a, b in zip(first, again):
@@ -398,11 +406,151 @@ def test_xic_4d_reruns_bit_identical(card):
     assert float(first[0].sum()) > 0
     cpu = dia.device_arrays(1, "cpu")
     on_cpu = extract_xic_4d(
-        cpu["peak_mz"], cpu["peak_intensity"], cpu["peak_scanbin"], cpu["cell_start"],
+        cpu["peak_store"].packed[:, 0], cpu["peak_store"].packed[:, 1], cpu["peak_store"].scanbin, cpu["cell_start"],
         t(slot, "cpu"), t(qmz, "cpu"), 15.0, t(c0, "cpu"), **kw,
     )
     for a, b, atol in zip(first, on_cpu, (1e-4, 1e-8)):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-6, atol=atol)
+
+
+SCAN_CASES = {
+    # name: (B, Q, S, W, slab, with_mz, profile, stride, index, scan bins out of [0, S));
+    # the 4D cell's shapes are S 8, W 128, slab 4,096, Q 24 and 3
+    "cells_q24": (256, 24, 8, 128, 4096, False, False, 1, torch.int32, False),
+    "cells_q3_mz": (256, 3, 8, 128, 4096, True, False, 1, torch.int32, False),
+    "cells_q24_mz": (128, 24, 8, 128, 4096, True, False, 1, torch.int32, False),
+    "profile_q24": (256, 24, 8, 1, 4096, False, True, 1, torch.int32, False),
+    "profile_q3": (256, 3, 8, 1, 4096, False, True, 1, torch.int32, False),
+    "slab_cut": (256, 24, 8, 128, 16, True, False, 1, torch.int32, False),
+    "slab_cut_profile": (256, 24, 8, 1, 16, False, True, 1, torch.int32, False),
+    "strided_w512": (128, 24, 8, 512, 4096, False, False, 4, torch.int32, False),
+    "strided_w512_mz": (64, 3, 8, 512, 4096, True, False, 2, torch.int32, False),
+    "int64_cells_mz": (256, 24, 8, 128, 4096, True, False, 1, torch.int64, False),
+    "int64_profile": (256, 24, 8, 1, 4096, False, True, 1, torch.int64, False),
+    "scan_bins_outside": (256, 24, 8, 64, 4096, True, False, 1, torch.int32, True),
+    "scan_bins_outside_profile": (256, 24, 8, 1, 4096, False, True, 1, torch.int32, True),
+    "few_bins_s3_w33": (128, 5, 3, 33, 4096, True, False, 1, torch.int32, False),
+}
+
+
+@pytest.fixture(scope="module")
+def world_4d():
+    return _world(with_mobility=True)
+
+
+def _scan_launch(card, dia, case):
+    """(wrapper, plain version, args, kw) of one of SCAN_CASES on the card.
+    Queries sit on stored peaks; a row and a few queries are masked (slot
+    -1), one window starts before the run and one ends past it; profile
+    windows run 1-40 cycles, and some end before they start."""
+    B, Q, S, W, slab, with_mz, profile, stride, index, outside = SCAN_CASES[case]
+    dev = dia.device_arrays(stride, card)
+    slot, qmz, c0 = _queries(dia, dev, B, Q, max(W, 40), stride, sorted(SCAN_CASES).index(case))
+    slot[3] = -1
+    store = dev["peak_store"]
+    if outside:  # scan bins below 0 and at or past S, which no cell takes
+        sb = store.scanbin.clone()
+        sb[::5] = -2
+        sb[1::7] = S
+        sb[2::11] = 99
+        store = store._replace(scanbin=sb)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(card)
+
+    kw = dict(n_cycles=dev["n_cycles"], n_bins=dia.n_bins, bin_mz_min=dia.bin_mz_min,
+              bin_width=dia.coarse_bin_width, n_scan_bins=S, slab=slab)
+    args = (store, dev["cell_start"].to(index), t(slot), t(qmz), 15.0, t(c0))
+    if profile:
+        hi = c0 + np.random.default_rng(2).integers(-3, 40, B).astype(np.int32)
+        return scan_cells_cuda.extract_scan_profile_cuda, extract_scan_profile, (*args, t(hi)), kw
+    return scan_cells_cuda.extract_xic_4d_cuda, extract_xic_4d, args, dict(kw, window_len=W, with_mz=with_mz)
+
+
+@pytest.mark.parametrize("case", sorted(SCAN_CASES))
+def test_scan_cells_kernel_matches_plain(card, world_4d, case):
+    """The scan-resolved kernel against the plain 4D extraction on the card,
+    and a rerun bit-identical (no atomics). Both sum each cell in float64
+    and round once to float32, the plain version as differences of prefix
+    sums: rtol 1e-6 is a few float32 ulp. The m/z delta plane is a float32
+    quotient of two such sums; atol 1e-9 Da covers a cell whose deltas
+    cancel, where the prefix sums' float64 rounding (~1e-13 Da) is not small
+    beside the sum."""
+    wrapper, plain, args, kw = _scan_launch(card, world_4d, case)
+    before = scan_cells_cuda.launches
+    got = _planes(wrapper(*args, **kw))
+    torch.cuda.synchronize()
+    assert scan_cells_cuda.launches == before + 1
+    store = args[0]
+    want = _planes(plain(store.packed[:, 0], store.packed[:, 1], store.scanbin, *args[1:], **kw))
+    assert len(got) == len(want) == (2 if kw.get("with_mz") else 1)
+    for g, w, atol in zip(got, want, (0.0, 1e-9)):
+        assert g.shape == w.shape and g.dtype == torch.float32
+        torch.testing.assert_close(g, w, rtol=1e-6, atol=atol)
+    assert float(want[0].sum()) > 0
+    assert float(want[0][3].abs().sum()) == 0 == float(got[0][3].abs().sum())  # the masked row
+    again = _planes(wrapper(*args, **kw))
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+
+
+def test_scan_cells_refuses_what_the_kernel_does_not_take(card, world_4d):
+    """On CUDA tensors the wrapper raises, and never runs the plain
+    version: S * W past a warp's shared memory (the limit in the message),
+    a cell index of another width, a masked store layout, a non-contiguous
+    query plane; the library refuses other index widths itself."""
+    wrapper, _, args, kw = _scan_launch(card, world_4d, "cells_q3_mz")
+    store, cs, slot, qmz, tol, c0 = args
+    before = scan_cells_cuda.launches
+    with pytest.raises(ValueError, match="shared memory a warp; the card gives a block at most"):
+        wrapper(*args, **dict(kw, n_scan_bins=64, window_len=1024))
+    with pytest.raises(TypeError, match="int32 or torch.int64"):
+        wrapper(store, cs.short(), slot, qmz, tol, c0, **kw)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        short = store._replace(packed=store.packed[:-1], cycle=store.cycle[:-1], scanbin=store.scanbin[:-1])
+        wrapper(short, cs, slot, qmz, tol, c0, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        wrapper(store, cs, slot.t().contiguous().t(), qmz, tol, c0, **kw)
+    assert scan_cells_cuda.launches == before
+    out = torch.full((1, 1, 8, 16), -1.0, device=card)
+    lib = scan_cells_cuda._library()
+    for index_bytes in (2, 0, 16):
+        err = lib.scan_cells_launch(
+            store.packed.data_ptr(), store.scanbin.data_ptr(), store.packed.shape[0],
+            cs.data_ptr(), index_bytes, cs.shape[2], cs.shape[0], kw["n_bins"], kw["n_cycles"],
+            slot.data_ptr(), qmz.data_ptr(), c0.data_ptr(), None,
+            1, 1, 8, 16, 256, 1.0, 1.0, float(kw["bin_mz_min"]), float(kw["bin_width"]), 0,
+            out.data_ptr(), None, torch.cuda.current_stream().cuda_stream,
+        )
+        assert err != 0, index_bytes
+    torch.cuda.synchronize()
+    assert float(out.min()) == -1.0 == float(out.max())
+
+
+def test_4d_drivers_launch_the_scan_cells_kernel(card, monkeypatch):
+    """4D selection (``select_candidates_batch_4d``) and 4D scoring
+    (``score_candidates_batch``) on the card go through the scan-resolved
+    kernel, and never enter the plain 4D extractions."""
+
+    def refuse(*a, **k):
+        raise AssertionError("a plain 4D extraction ran on the card")
+
+    for m in (ops_xic, scan_cells_cuda):
+        monkeypatch.setattr(m, "extract_xic_4d", refuse)
+        monkeypatch.setattr(m, "extract_scan_profile", refuse)
+    spectra, prec, frag = make_synthetic_dia(
+        SyntheticConfig(n_peptides=300, n_windows=6, n_cycles=200, with_mobility=True, seed=3)
+    )
+    prec, frag = add_synthetic_decoys(prec, frag)
+    dia = DiaData.from_spectra(spectra, n_scan_bins=8)
+    before = scan_cells_cuda.launches
+    cands = CandidateSelection(dia, prec, frag, SelectionConfig(candidate_count=3, batch_size=256), device=card)()
+    selected = scan_cells_cuda.launches
+    assert selected - before >= 2 * len(batch_schedule(len(prec["precursor_idx"]), 256))
+    assert (cands["scan_stop"] > 1).any()
+    psm, _ = CandidateScoring(dia, prec, frag, ScoringConfig(batch_size=512), device=card)(cands)
+    torch.cuda.synchronize()
+    assert len(psm["precursor_idx"]) > 100
+    assert scan_cells_cuda.launches - selected >= 3 * len(batch_schedule(len(cands["precursor_idx"]), 512))
 
 
 def _library_world(with_mobility=False):

@@ -112,9 +112,9 @@ def test_device_arrays_equal(stores, stride):
     np.testing.assert_array_equal(ours.peak_cycle(), jp[:n_stored, 2].astype(np.int32))
     np.testing.assert_array_equal(store.cycle.numpy()[:n_stored], jp[:n_stored, 2].astype(np.uint16))
     assert (jp[n_stored : packed.shape[0], 1] == 0).all()
-    np.testing.assert_array_equal(d["peak_mz"].numpy(), j["peak_mz"])
-    np.testing.assert_array_equal(d["peak_intensity"].numpy(), j["peak_intensity"])
-    np.testing.assert_array_equal(d["peak_scanbin"].numpy(), j["peak_scanbin"])
+    np.testing.assert_array_equal(d["peak_store"].packed[:, 0].numpy(), j["peak_mz"])
+    np.testing.assert_array_equal(d["peak_store"].packed[:, 1].numpy(), j["peak_intensity"])
+    np.testing.assert_array_equal(d["peak_store"].scanbin.numpy(), j["peak_scanbin"])
     assert [t.dtype for t in store] == [torch.float32, torch.uint16, torch.int16]
     assert all(t.is_contiguous() and t.shape[0] == packed.shape[0] for t in store)
     # the coarse view shares the fine view's peak store

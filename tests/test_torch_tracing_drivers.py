@@ -1,20 +1,21 @@
-"""The drivers' counters and the plain 4D extractions' spans
-(``utils/profiling``) on the CPU, on tiny 3D and 4D worlds:
+"""The drivers' counters and the 4D extractions' spans (``utils/profiling``)
+on the CPU, on tiny 3D and 4D worlds:
 
 - ``scoring.cells`` and ``scoring.extent_cells``: each dispatched chunk's
   rows as dispatched (padding included) times its window bucket W, and
   each candidate's frames clipped to its chunk's W, against hand counts on
   the sequential scoring driver, the pipelined one and the one split over
   three devices;
-- ``ops.xic_4d`` and ``ops.scan_profile``: one span a call, the same bits
-  as untraced, and no device time on the CPU.
+- ``ops.xic_4d`` and ``ops.scan_profile``: one span a call of the wrappers
+  (``ops/scan_cells_cuda``, which run the plain versions on the CPU), the
+  same bits as untraced, and no device time on the CPU.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from alphadia_torch.ops.xic import extract_scan_profile, extract_xic_4d
+from alphadia_torch.ops.scan_cells_cuda import extract_scan_profile_cuda, extract_xic_4d_cuda
 from alphadia_torch.rawdata import DiaData
 from alphadia_torch.search.pipelined import PipelinedExtraction
 from alphadia_torch.search.scoring import CandidateScoring, ScoringConfig
@@ -106,8 +107,8 @@ def test_sharded_scoring_counts_the_padded_rows(world, monkeypatch):
 
 @pytest.mark.parametrize("fn", ["xic_4d", "scan_profile"])
 def test_plain_4d_extractions_are_spans_and_keep_their_bits(fn):
-    """Under a profiler a plain 4D extraction opens its span once and gives
-    the bits it gives untraced; on the CPU it records no device time."""
+    """Under a profiler a 4D extraction's wrapper opens its span once and
+    gives the bits it gives untraced; on the CPU it records no device time."""
     spectra, _, _ = make_synthetic_dia(SyntheticConfig(n_peptides=20, n_windows=2, n_cycles=60, seed=3,
                                                        with_mobility=True))
     dia = DiaData.from_spectra(spectra, n_scan_bins=8)
@@ -119,13 +120,12 @@ def test_plain_4d_extractions_are_spans_and_keep_their_bits(fn):
     slot = torch.from_numpy((row // dia.n_bins).astype(np.int32))
     qmz = torch.from_numpy(dia.peak_mz[pick].astype(np.float32))
     c0 = torch.from_numpy(rng.integers(0, dev["n_cycles"], B).astype(np.int32))
-    peaks = dev["peak_store"]
-    head = (peaks.packed[:, 0], peaks.packed[:, 1], peaks.scanbin, dev["cell_start"], slot, qmz, 10.0, c0)
+    head = (dev["peak_store"], dev["cell_start"], slot, qmz, 10.0, c0)
 
     def run():
         if fn == "xic_4d":
-            return extract_xic_4d(*head, n_scan_bins=8, window_len=W, with_mz=True, **kw)
-        return extract_scan_profile(*head, c0 + W, n_scan_bins=8, **kw)
+            return extract_xic_4d_cuda(*head, n_scan_bins=8, window_len=W, with_mz=True, **kw)
+        return extract_scan_profile_cuda(*head, c0 + W, n_scan_bins=8, **kw)
 
     want = run()
     profiling.take()

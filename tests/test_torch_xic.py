@@ -116,7 +116,7 @@ def test_plain_matches_jax_xla(world, case):
         slot, qmz, np.float32(TOL_PPM), c0, **kw,
     )
     got = extract_xic(
-        tdev["peak_mz"], tdev["peak_intensity"], tdev["cell_start"],
+        tdev["peak_store"].packed[:, 0], tdev["peak_store"].packed[:, 1], tdev["cell_start"],
         t(slot), t(qmz), TOL_PPM, t(c0), **kw,
     )
     # on CPU tensors the kernel's wrapper runs the plain version
@@ -138,7 +138,8 @@ def test_slab_truncation_drops_the_same_peaks(dense_world):
     dev = td.device_arrays(1, "cpu")
     slot, qmz, c0 = random_queries(td, 5, 7, dev["n_cycles"], 11)
     kw = xic_kw(td, dev, 32, 8, with_mz=True, mz_as_delta=True)
-    args = (dev["peak_mz"], dev["peak_intensity"], dev["cell_start"], t(slot), t(qmz), 20.0, t(c0))
+    args = (dev["peak_store"].packed[:, 0], dev["peak_store"].packed[:, 1], dev["cell_start"],
+            t(slot), t(qmz), 20.0, t(c0))
     full = extract_xic(*args, **{**kw, "slab": 4096})
     cut = extract_xic(*args, **kw)
     assert float(cut[0].sum()) < float(full[0].sum())
@@ -165,7 +166,7 @@ def test_out_of_range_indices_are_clamped(world):
     c0 = np.array([-200, -W, dev["n_cycles"] + 50, 10], np.int32)
     kw = xic_kw(td, dev, W, 64)
     got = extract_xic(
-        dev["peak_mz"], dev["peak_intensity"], dev["cell_start"], t(slot), t(qmz), 20.0, t(c0), **kw
+        dev["peak_store"].packed[:, 0], dev["peak_store"].packed[:, 1], dev["cell_start"], t(slot), t(qmz), 20.0, t(c0), **kw
     )
     ref = jax_extract_xic(
         jdev["peak_mz"], jdev["peak_intensity"], jdev["cell_start"], slot, qmz, np.float32(20.0), c0, **kw
@@ -181,7 +182,7 @@ def test_cycle_index_w_means_cycle_c0_plus_w(world):
     dev = td.device_arrays(1, "cpu")
     slot, qmz, _ = random_queries(td, 4, 6, dev["n_cycles"], 5)
     kw = xic_kw(td, dev, 32, 256)
-    args = (dev["peak_mz"], dev["peak_intensity"], dev["cell_start"], t(slot), t(qmz), 20.0)
+    args = (dev["peak_store"].packed[:, 0], dev["peak_store"].packed[:, 1], dev["cell_start"], t(slot), t(qmz), 20.0)
     for base in (20, 3):
         c0 = np.full(4, base, np.int32)
         a = extract_xic(*args, t(c0), **kw)

@@ -138,7 +138,7 @@ def test_xic_4d_matches_jax(world, case):
         slot, qmz, np.float32(TOL_PPM), c0, **kw,
     )
     got = extract_xic_4d(
-        dev["peak_mz"], dev["peak_intensity"], dev["peak_scanbin"], dev["cell_start"],
+        dev["peak_store"].packed[:, 0], dev["peak_store"].packed[:, 1], dev["peak_store"].scanbin, dev["cell_start"],
         t(slot), t(qmz), TOL_PPM, t(c0), **kw,
     )
     ref = ref if with_mz else (ref,)
@@ -162,7 +162,8 @@ def test_slab_overflow_drops_peaks(world):
     _, td = world
     dev = td.device_arrays(1, "cpu")
     slot, qmz, c0 = peak_queries(td, 5, 8, 32, 1, dev["n_cycles"], 2)
-    args = (dev["peak_mz"], dev["peak_intensity"], dev["peak_scanbin"], dev["cell_start"], t(slot), t(qmz), TOL_PPM, t(c0))
+    args = (dev["peak_store"].packed[:, 0], dev["peak_store"].packed[:, 1], dev["peak_store"].scanbin, dev["cell_start"],
+            t(slot), t(qmz), TOL_PPM, t(c0))
     kw = static_kw(td, dev, 4)
     cut = extract_xic_4d(*args, **kw, window_len=32)
     full = extract_xic_4d(*args, **{**kw, "slab": 4096}, window_len=32)
@@ -178,11 +179,11 @@ def test_4d_collapses_to_the_3d_xic(world, stride):
     kw = static_kw(td, dev, 256)
     S = kw.pop("n_scan_bins")
     x4 = extract_xic_4d(
-        dev["peak_mz"], dev["peak_intensity"], dev["peak_scanbin"], dev["cell_start"],
+        dev["peak_store"].packed[:, 0], dev["peak_store"].packed[:, 1], dev["peak_store"].scanbin, dev["cell_start"],
         t(slot), t(qmz), TOL_PPM, t(c0), n_scan_bins=S, window_len=32, **kw,
     )
     x3 = extract_xic(
-        dev["peak_mz"], dev["peak_intensity"], dev["cell_start"], t(slot), t(qmz), TOL_PPM, t(c0),
+        dev["peak_store"].packed[:, 0], dev["peak_store"].packed[:, 1], dev["cell_start"], t(slot), t(qmz), TOL_PPM, t(c0),
         window_len=32, **kw,
     )
     torch.testing.assert_close(x4.sum(dim=2), x3, rtol=1e-5, atol=1e-3)
@@ -208,7 +209,7 @@ def test_scan_profile_matches_jax(world, slab):
         slot, qmz, np.float32(TOL_PPM), lo, hi, **kw,
     )
     got = extract_scan_profile(
-        dev["peak_mz"], dev["peak_intensity"], dev["peak_scanbin"], dev["cell_start"],
+        dev["peak_store"].packed[:, 0], dev["peak_store"].packed[:, 1], dev["peak_store"].scanbin, dev["cell_start"],
         t(slot), t(qmz), TOL_PPM, t(lo), t(hi), **kw,
     )
     assert got.shape == (B, Q, td.n_scan_bins)
@@ -216,7 +217,7 @@ def test_scan_profile_matches_jax(world, slab):
     # the profile is the 4D XIC of the window summed over its cycles
     W = int((hi - lo).max())
     x4 = extract_xic_4d(
-        dev["peak_mz"], dev["peak_intensity"], dev["peak_scanbin"], dev["cell_start"],
+        dev["peak_store"].packed[:, 0], dev["peak_store"].packed[:, 1], dev["peak_store"].scanbin, dev["cell_start"],
         t(slot), t(qmz), TOL_PPM, t(lo), window_len=W, **kw,
     )
     inside = torch.arange(W)[None, :] < t(hi - lo)[:, None]  # [B, W]
